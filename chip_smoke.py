@@ -3,27 +3,47 @@
 
     python3 chip_smoke.py [--out DIR] [--profile]
 
-Drives the port's CIFAR-10 main path at the full DDIMUNetConfig() width
-through the entry points a user calls, and holds every kernel of that
-path against its plain PyTorch version:
+Builds the port's CUDA kernels (nvcc, one process per source, started
+together) into qdiffusion_torch/_build/, then drives two main paths
+through the entry points a user calls and holds every kernel of them
+against its plain PyTorch version:
 
-  1. device   - the card's name and power limit (nvidia-smi);
-  2. kernels  - GroupNorm kernel B1 at every GroupNorm shape of the UNet
-                at batch 64, bf16 and f32: error against the plain version,
-                kernel / plain / F.group_norm device time (CUDA graph of
-                back-to-back calls on inputs that outgrow the L2, CUDA
-                events, median), the kernel's eager launch rate, and the
-                device-memory bound;
-  3. fold     - `qdiffusion_torch.cli sample --task cifar10 --engine fold
-                --weight-bit 4 --dtype bfloat16 --n 128 --batch 64`
-                (DDIM-100 quad) with seeded random params and a W4 qstate
-                made here; output shape, finiteness and the GroupNorm
-                launch count (2 batches x 100 steps x per-step count);
-  4. card/CPU - one fold step at batch 2, card bf16 against CPU f32;
-  5. sim      - W8A8 fake-quant, activation qstate from 8 inputs, one
-                f32 UNet step at batch 64 and a 10-step DDIM through the
-                CLI.
-  (--profile adds a torch.profiler breakdown of three fold steps.)
+  CIFAR-10 (DDIMUNetConfig(), full width):
+  1. kernels  - GroupNorm kernel B1 at every GroupNorm shape of the UNet
+                at batch 64, bf16 and f32 (error, kernel / plain /
+                F.group_norm device time in a CUDA graph over inputs that
+                outgrow the L2, CUDA events, median; the device-memory
+                bound);
+  2. fold     - `cli sample --task cifar10 --engine fold --weight-bit 4
+                --dtype bfloat16 --n 64 --batch 64` (DDIM-100), the B1
+                launch count against 100 x the per-step count;
+  3. card/CPU - one fold step at batch 2, card bf16 against CPU f32;
+  4. sim      - W8A8, activation qstate from 8 inputs, one f32 step at
+                batch 64 and a 10-step DDIM through the CLI.
+  Stable Diffusion v1 (sd_v1 preset, full width, seeded random weights
+  with no zero-initialised branch; no checkpoint or vocabulary needed):
+  5. attn_kernels - B2 (flash_attention) at (8, 4096, 8, 40) and
+                (8, 1024, 8, 80), B3 (streaming_flash_attention) at
+                (4, 4096, 1, 512), bf16 and f32, with and without the
+                softmax/V quantizers: error against the plain version,
+                kernel / plain / F.scaled_dot_product_attention time, and
+                the bound (bytes, MMA flops, exponentials);
+  6. gn_sd    - B1 at every GroupNorm shape of one SD UNet call (batch 8,
+                CFG) and one VAE decode (batch 4), bf16;
+  7. sd_fold_cli - writes the UNet / VAE / CLIP npz files, a token-ids
+                npz and a W4 'mse' qstate, then `cli sample --task sd_v1
+                --engine fold --weight-bit 4 --dtype bfloat16 --n 8
+                --batch 4` (PLMS-50, CFG 7.5, 512x512): output, 51 UNet
+                calls per batch, and the B1/B2/B3 launch counts against a
+                spy's count of one UNet call and one decode;
+  8. sd_card_vs_cpu - one fold UNet call with context at 32x32 latents,
+                batch 2, card bf16 against CPU f32 (the 1024-token sites
+                reach B2);
+  9. sd_sim   - W8A8: activation qstate from 2 inputs, one bf16 UNet call
+                at batch 8 and a 5-step PLMS through the CLI (f32), with
+                B2 launched with its softmax quantizer.
+  (--profile adds torch.profiler breakdowns of a CIFAR fold step and of
+  an SD fold UNet call.)
 
 Each phase prints one JSON line. Then come the `kernels` line, the raw
 nvidia-smi line and, only if every check passed, the last line
@@ -36,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -47,10 +68,17 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+# exponentials: 16 per clock per SM (the special-function unit), 132 SMs
+# at the 1.98 GHz maximum SM clock of the H100 SXM
+EXP_PER_S = 16 * 132 * 1.98e9
 GN_FLOPS_PER_ELEM = 8  # sum, square-add, then subtract, scale, affine
 ROTATE_BYTES = 128 << 20  # inputs cycled per timing: over twice the L2
 BATCH = 64
 STEPS = 100
+SD_BATCH = 4  # images per batch (the UNet sees 8 under CFG)
+SD_STEPS = 50
+SD_N = 2 * SD_BATCH
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),  # sum order only
        torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}  # one bf16 rounding
 REL_L2_CARD_VS_CPU = 5e-2  # bf16 carrier against the f32 reference
@@ -130,30 +158,64 @@ class Checks:
         return ok
 
 
-def gn_shapes(model, task) -> list:
-    """(H, W, C) of every GroupNorm input of one forward, in call order,
-    recorded on the card at batch 1."""
+class Spy:
+    """Replace functions by recording wrappers for the length of a `with`
+    block: targets are (module, attribute) pairs; `record(args, kwargs)`
+    returns what to log per call. The real function still runs."""
+
+    def __init__(self, targets, record):
+        self.targets, self.record, self.seen = targets, record, []
+
+    def __enter__(self):
+        self.saved = [(m, a, getattr(m, a)) for m, a in self.targets]
+        for m, a, real in self.saved:
+            def spy(*args, _real=real, _name=a, **kw):
+                self.seen.append((_name, self.record(args, kw)))
+                return _real(*args, **kw)
+            setattr(m, a, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for m, a, real in self.saved:
+            setattr(m, a, real)
+
+
+def gn_spy() -> Spy:
+    """Every B1 call site of the models: nn.group_norm's and the LDM
+    AttentionBlock's token GroupNorm."""
+    import qdiffusion_torch.models.unet_ldm as unet_ldm
     import qdiffusion_torch.nn as qnn
 
-    seen = []
-    real = qnn.fused_group_norm
-
-    def spy(x, *a, **kw):
-        seen.append(tuple(x.shape[1:]))
-        return real(x, *a, **kw)
-
-    qnn.fused_group_norm = spy
-    try:
-        with torch.no_grad():
-            s = task.image_size
-            model(torch.zeros(1, s, s, task.channels, device="cuda"),
-                  torch.zeros(1, device="cuda"))
-    finally:
-        qnn.fused_group_norm = real
-    return seen
+    return Spy([(qnn, "fused_group_norm"), (unet_ldm, "fused_group_norm")],
+               lambda a, kw: tuple(a[0].shape))
 
 
-def phase_kernels(shapes: list, check: Checks) -> tuple:
+def attn_spy() -> Spy:
+    """The blockwise dispatch's two kernel wrappers (B2, B3)."""
+    import qdiffusion_torch.ops.attention as att
+
+    return Spy([(att, "flash_attention"),
+                (att, "streaming_flash_attention")],
+               lambda a, kw: (tuple(a[0].shape), tuple(a[1].shape),
+                              str(a[0].dtype).replace("torch.", ""),
+                              kw.get("sm_q") is not None))
+
+
+def gn_shapes(model, task) -> list:
+    """(1, H, W, C) of every GroupNorm input of one CIFAR forward at
+    batch 1, in call order."""
+    with gn_spy() as spy, torch.no_grad():
+        s = task.image_size
+        model(torch.zeros(1, s, s, task.channels, device="cuda"),
+              torch.zeros(1, device="cuda"))
+    return [shape for _, shape in spy.seen]
+
+
+def phase_kernels(shapes: list, check: Checks, *,
+                  dtypes=(torch.bfloat16, torch.float32),
+                  phase: str = "kernel_shape", where: str = "") -> list:
+    """B1 at each distinct full (B, ..., C) shape of `shapes` (a call-order
+    list, so a shape's multiplicity is its count per call)."""
     from qdiffusion_torch.ops.groupnorm import fused_group_norm, \
         group_norm_plain
 
@@ -162,9 +224,10 @@ def phase_kernels(shapes: list, check: Checks) -> tuple:
         counts[s] = counts.get(s, 0) + 1
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for (h, w, c), per_step in counts.items():
-            x = (torch.randn((BATCH, h, w, c), generator=gen, device="cuda")
+    for dtype in dtypes:
+        for shape, per_call in counts.items():
+            c = shape[-1]
+            x = (torch.randn(shape, generator=gen, device="cuda")
                  * 2.0 + 0.5).to(dtype)
             scale = (1.0 + 0.5 * torch.randn(c, generator=gen,
                                               device="cuda")).to(dtype)
@@ -175,27 +238,29 @@ def phase_kernels(shapes: list, check: Checks) -> tuple:
             torch.cuda.synchronize()
             err = float((y.float() - ref.float()).abs().max())
             ok = bool(torch.allclose(y.float(), ref.float(), **TOL[dtype]))
-            check(ok, f"group_norm {dtype} {(BATCH, h, w, c)}: max abs err "
+            check(ok, f"group_norm {dtype} {shape}: max abs err "
                       f"{err} over {TOL[dtype]}")
+            del y, ref
             nbytes = 2 * x.numel() * x.element_size() \
                 + 2 * c * scale.element_size()
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = GN_FLOPS_PER_ELEM * x.numel() / F32_FLOPS * 1e3
             xs = [x] + [x.clone() for _ in range(
                 -(-ROTATE_BYTES // (x.numel() * x.element_size())) - 1)]
-            # F.group_norm takes NCHW: the same channels_last bytes
+            # F.group_norm takes (N, C, *): the same channel-last bytes
             lib = torch.nn.functional.group_norm
             row = {
-                "phase": "kernel_shape", "kernel": "group_norm",
+                "phase": phase, "kernel": "group_norm", "where": where,
                 "dtype": str(dtype).replace("torch.", ""),
-                "shape": [BATCH, h * w, c], "per_step": per_step,
+                "shape": [shape[0], x.numel() // (shape[0] * c), c],
+                "per_call": per_call,
                 "max_abs_err": err, "tolerance": TOL[dtype], "ok": ok,
                 "ms": _graph_ms([lambda a=a: fused_group_norm(a, scale, bias)
                                  for a in xs]),
                 "plain_ms": _graph_ms([lambda a=a: group_norm_plain(
-                    a, scale, bias) for a in xs]),
+                    a, scale, bias) for a in xs], min_calls=5),
                 "library_ms": _graph_ms([lambda a=a: lib(
-                    a.permute(0, 3, 1, 2), 32, scale, bias, eps=1e-6)
+                    a.movedim(-1, 1), 32, scale, bias, eps=1e-6)
                     for a in xs]),
                 "eager_ms": _time_ms(lambda: fused_group_norm(x, scale,
                                                               bias)),
@@ -203,10 +268,14 @@ def phase_kernels(shapes: list, check: Checks) -> tuple:
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             }
-            del xs
+            del xs, x
             _emit(row)
             rows.append(row)
     return rows
+
+
+def per_call_sum(rows: list, key: str, dtype="bfloat16") -> float:
+    return sum(r[key] * r["per_call"] for r in rows if r["dtype"] == dtype)
 
 
 def phase_fold(task, out: Path, per_step: int, check: Checks) -> dict:
@@ -218,7 +287,7 @@ def phase_fold(task, out: Path, per_step: int, check: Checks) -> dict:
     qpath = out / "w4_qstate.npz"
     save_qstate(qpath, init_weight_qstate(_seeded_model(task, weight_bit=4)))
 
-    n = 2 * BATCH
+    n = BATCH
     fused_group_norm.launches = 0
     res = cli.main(["sample", "--task", "cifar10", "--qstate", str(qpath),
                     "--weight-bit", "4", "--engine", "fold",
@@ -228,7 +297,7 @@ def phase_fold(task, out: Path, per_step: int, check: Checks) -> dict:
     launches = fused_group_norm.launches
     with np.load(res["path"]) as f:
         imgs = f["arr_0"]
-    want = 2 * STEPS * per_step
+    want = (n // BATCH) * STEPS * per_step
     check(imgs.shape == (n, 32, 32, 3) and imgs.dtype == np.uint8,
           f"fold npz {imgs.shape} {imgs.dtype}")
     check(res["nonfinite"] == 0, f"fold: {res['nonfinite']} non-finite")
@@ -325,28 +394,20 @@ def phase_sim(task, out: Path, per_step: int, check: Checks) -> dict:
     return row
 
 
-def phase_profile(task, out: Path) -> dict:
-    """torch.profiler over three bf16 fold steps at batch 64: device time
-    by kernel and the device's idle share of the window."""
+def profile_breakdown(run, reps: int, trace: Path, what: str) -> dict:
+    """torch.profiler over `reps` calls of `run`: device time by kernel
+    kind and the device's idle share against the unprofiled call time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from qdiffusion_torch.calib.engine import init_weight_qstate
-    from qdiffusion_torch.deploy import make_quantized_step
-
-    model = _seeded_model(task, weight_bit=4)
-    step = make_quantized_step(model, init_weight_qstate(model),
-                               engine="fold", dtype=torch.bfloat16)
-    x = torch.randn((BATCH, 32, 32, 3), device="cuda").to(torch.bfloat16)
-    t = torch.full((BATCH,), 500.0, device="cuda")
-    step_ms = _time_ms(lambda: step(x, t), reps=3)  # unprofiled
+    call_ms = _time_ms(run, reps=reps)  # unprofiled
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
-            step(x, t)
+        for _ in range(reps):
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(str(out / "fold_step_trace.json"))
+    prof.export_chrome_trace(str(trace))
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -362,31 +423,512 @@ def phase_profile(task, out: Path) -> dict:
     for e in kern:
         name = e.key.lower()
         kind = ("group_norm" if "group_norm" in name else
+                "flash_attention" if "flash_kernel" in name else
                 "conv" if any(s in name for s in ("conv", "fprop",
                                                    "implicit")) else
-                "gemm" if "gemm" in name else "elementwise and other")
+                "gemm" if any(s in name for s in ("gemm", "matmul",
+                                                   "cutlass")) else
+                "elementwise and other")
         ms, n = kinds.get(kind, (0.0, 0))
-        kinds[kind] = (ms + dev_us(e) / 3e3, n + e.count / 3)
+        kinds[kind] = (ms + dev_us(e) / (1e3 * reps), n + e.count / reps)
     top = sorted(kern, key=dev_us, reverse=True)[:12]
-    row = {"phase": "profile", "steps": 3, "batch": BATCH,
-           "step_ms": step_ms, "profiled_step_ms": wall_ms / 3,
-           "device_busy_ms_per_step": busy_ms / 3,
-           # against the unprofiled step: the profiler slows the host
-           "idle_share": (1.0 - busy_ms / 3 / step_ms) if busy_ms else None,
-           "by_kind": {k: {"ms_per_step": ms, "kernels_per_step": n}
-                       for k, (ms, n) in kinds.items()},
-           "top": [{"name": e.key[:90], "ms_per_step": dev_us(e) / 3e3,
-                    "calls_per_step": e.count / 3} for e in top]}
+    return {"what": what, "calls": reps, "call_ms": call_ms,
+            "profiled_call_ms": wall_ms / reps,
+            "device_busy_ms_per_call": busy_ms / reps,
+            "idle_share": (1.0 - busy_ms / reps / call_ms) if busy_ms
+            else None,
+            "by_kind": {k: {"ms_per_call": ms, "kernels_per_call": n}
+                        for k, (ms, n) in kinds.items()},
+            "top": [{"name": e.key[:90], "ms_per_call": dev_us(e) / (
+                1e3 * reps), "calls_per_call": e.count / reps}
+                for e in top]}
+
+
+def phase_profile(task, out: Path) -> dict:
+    """Three bf16 CIFAR fold steps at batch 64."""
+    from qdiffusion_torch.calib.engine import init_weight_qstate
+    from qdiffusion_torch.deploy import make_quantized_step
+
+    model = _seeded_model(task, weight_bit=4)
+    step = make_quantized_step(model, init_weight_qstate(model),
+                               engine="fold", dtype=torch.bfloat16)
+    x = torch.randn((BATCH, 32, 32, 3), device="cuda").to(torch.bfloat16)
+    t = torch.full((BATCH,), 500.0, device="cuda")
+    row = {"phase": "profile", **profile_breakdown(
+        lambda: step(x, t), 3, out / "fold_step_trace.json",
+        f"CIFAR-10 fold W4 bf16 step, batch {BATCH}")}
     _emit(row)
     return row
 
 
+# -- Stable Diffusion v1 ------------------------------------------------------
+
+def _sd_unet(task, dtype=None, **flags):
+    from qdiffusion_torch.config import QuantFlags
+    from qdiffusion_torch.models.unet_ldm import LDMUNet
+
+    model = LDMUNet(task.unet_ldm, QuantFlags(**flags).policy_ldm())
+    return model if dtype is None else model.to(dtype)
+
+
+def _sd_inputs(task, n, size=None, seed=0, dtype=torch.float32):
+    """Seeded (x NHWC latents, t, context (n, 77, 768) f32) on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    s = size or task.latent_size
+    x = torch.randn((n, s, s, task.latent_channels), generator=g,
+                    device="cuda").to(dtype)
+    t = torch.randint(1, 1000, (n,), generator=g, device="cuda").float()
+    c = torch.randn((n, 77, task.clip.hidden_size), generator=g,
+                    device="cuda")
+    return x, t, c
+
+
+def phase_sd_spy(task, check: Checks) -> dict:
+    """One bf16 UNet call at the CFG batch and one VAE decode, with every
+    B1 call and every blockwise-attention dispatch recorded."""
+    from qdiffusion_torch.models.vae import VAE
+
+    model = _sd_unet(task, torch.bfloat16, weight_bit=4)
+    model.load_state_dict(model.init_params(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    x, t, c = _sd_inputs(task, 2 * SD_BATCH, dtype=torch.bfloat16)
+    with gn_spy() as gn, attn_spy() as att, torch.no_grad():
+        eps = model(x, t, None, c)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(eps).all()), "sd spy: UNet call not finite")
+    del model, eps
+    vae = VAE(task.vae).to(torch.bfloat16)
+    vae.load_state_dict(vae.init_params(1))
+    with gn_spy() as gn_dec, attn_spy() as att_dec, torch.no_grad():
+        img = vae.decode(x[:SD_BATCH] / task.scale_factor)
+    torch.cuda.synchronize()
+    check(tuple(img.shape) == (SD_BATCH, 512, 512, 3)
+          and bool(torch.isfinite(img).all()), "sd spy: decode output")
+    del vae, img
+
+    def count(seen, name):
+        return sum(1 for n, _ in seen if n == name)
+
+    b2_sites = [r for n, r in att.seen if n == "flash_attention"]
+    row = {"phase": "sd_spy", "unet_params": n_params,
+           "unet_call": {"group_norm": len(gn.seen),
+                         "flash_attention": len(b2_sites),
+                         "flash_streaming": count(
+                             att.seen, "streaming_flash_attention")},
+           "decode": {"group_norm": len(gn_dec.seen),
+                      "flash_attention": count(att_dec.seen,
+                                               "flash_attention"),
+                      "flash_streaming": count(
+                          att_dec.seen, "streaming_flash_attention")},
+           "flash_sites": sorted({r[0]: b2_sites.count(r)
+                                  for r in b2_sites}.items()),
+           "streaming_sites": [r for n, r in att_dec.seen
+                               if n == "streaming_flash_attention"],
+           "unet_gn_shapes": [s for _, s in gn.seen],
+           "decode_gn_shapes": [s for _, s in gn_dec.seen]}
+    want_b2 = {(8, 4096, 8, 40): 5, (8, 1024, 8, 80): 5}
+    got_b2 = {}
+    for r in b2_sites:
+        got_b2[r[0]] = got_b2.get(r[0], 0) + 1
+    check(got_b2 == want_b2, f"sd spy: B2 sites {got_b2}, expected {want_b2}")
+    check(row["decode"]["flash_streaming"] == 1
+          and row["unet_call"]["flash_streaming"] == 0,
+          f"sd spy: B3 sites {row['unet_call']} {row['decode']}")
+    _emit({k: v for k, v in row.items() if not k.endswith("gn_shapes")})
+    return row
+
+
+def _attn_case(shape, dtype, quant, seed):
+    """Seeded q, k, v on the card (q scaled up so the softmax is peaked
+    and its quantizer sees a spread of buckets) and the quantizer pairs of
+    the LDM policy (softmax: 8-bit always_zero; V: 8-bit asymmetric)."""
+    from qdiffusion_torch.models.unet_ldm import LDMQuantPolicy
+
+    b, t, h, d = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = (2.5 * torch.randn((b, t, h, d), generator=g, device="cuda")
+         ).to(dtype)
+    k = torch.randn((b, t, h, d), generator=g, device="cuda").to(dtype)
+    v = torch.randn((b, t, h, d), generator=g, device="cuda").to(dtype)
+    if not quant:
+        return (q, k, v), None, None
+    pol = LDMQuantPolicy()
+    f = lambda a: torch.tensor(a, device="cuda")
+    sm_q = ({"delta": f(1 / 255), "zero_point": f(0.0)},
+            pol.sm_aq_transformer)
+    v_q = ({"delta": f(8 / 255), "zero_point": f(128.0)}, pol.aq)
+    return (q, k, v), sm_q, v_q
+
+
+def phase_attn_kernels(check: Checks) -> list:
+    """B2 and B3 at the SD and VAE shapes against their plain versions,
+    timed in CUDA graphs over inputs that outgrow the L2."""
+    from qdiffusion_torch.ops.flash_attention import flash_attention, \
+        flash_attention_plain
+    from qdiffusion_torch.ops.flash_streaming import \
+        streaming_flash_attention, streaming_flash_attention_plain
+
+    cases = [("flash_attention", (8, 4096, 8, 40), 5),
+             ("flash_attention", (8, 1024, 8, 80), 5),
+             ("flash_streaming", (4, 4096, 1, 512), 1)]
+    fns = {"flash_attention": (flash_attention, flash_attention_plain),
+           "flash_streaming": (streaming_flash_attention,
+                               streaming_flash_attention_plain)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for seed, (name, shape, per_call) in enumerate(cases):
+        fn, plain = fns[name]
+        b, t, h, d = shape
+        scale = d ** -0.5
+        for dtype in (torch.bfloat16, torch.float32):
+            for quant in (False, True):
+                (q, k, v), sm_q, v_q = _attn_case(shape, dtype, quant, seed)
+                kw = dict(scale=scale, sm_q=sm_q, v_q=v_q)
+                got = fn(q, k, v, **kw)
+                want = plain(q, k, v, **kw)
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                err = float(diff.max())
+                if dtype == torch.bfloat16:
+                    tol = "2e-2 abs + 2e-2 rel (one bf16 rounding of p, o)"
+                    ok = bool(torch.allclose(got.float(), want.float(),
+                                             rtol=2e-2, atol=2e-2))
+                elif not quant:
+                    tol = "5e-5 abs + 1e-4 rel (f32 sum order)"
+                    ok = bool(torch.allclose(got, want, rtol=1e-4,
+                                             atol=5e-5))
+                else:
+                    flip = float(sm_q[0]["delta"]) * float(v.abs().max())
+                    tol = (f"5e-5 abs, at most 1e-3 of the elements one "
+                           f"softmax bucket apart ({flip:.3g})")
+                    ok = err <= 5e-5 + flip and float(
+                        (diff > 5e-5).float().mean()) <= 1e-3
+                check(ok, f"{name} {shape} {dtype} quant={quant}: max abs "
+                          f"err {err} over {tol}")
+                del got, want, diff
+                es = q.element_size()
+                nbytes = 4 * q.numel() * es  # q, k, v read, o written
+                flops = 4 * b * h * t * t * d  # QK^T and PV
+                exps = b * h * t * t
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = max(flops / (BF16_FLOPS if es == 2 else F32_FLOPS),
+                             exps / EXP_PER_S) * 1e3
+                sets = [(q, k, v)] + [
+                    tuple(a.clone() for a in (q, k, v)) for _ in range(
+                        -(-ROTATE_BYTES // (3 * q.numel() * es)) - 1)]
+                row = {
+                    "phase": "attn_kernel", "kernel": name,
+                    "shape": list(shape),
+                    "dtype": str(dtype).replace("torch.", ""),
+                    "quant": quant, "per_call": per_call,
+                    "max_abs_err": err, "tolerance": tol, "ok": ok,
+                    "ms": _graph_ms([lambda s=s: fn(*s, **kw)
+                                     for s in sets], min_calls=10),
+                    "plain_ms": _graph_ms([lambda s=s: plain(*s, **kw)
+                                           for s in sets], min_calls=2),
+                    # one PyTorch call computes the unquantized function
+                    "library_ms": _graph_ms([lambda s=s: sdpa(
+                        *(a.transpose(1, 2) for a in s), scale=scale)
+                        for s in sets], min_calls=10)
+                    if not quant and dtype == torch.bfloat16 else None,
+                    "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                    "flops_ms": flops / (BF16_FLOPS if es == 2
+                                         else F32_FLOPS) * 1e3,
+                    "exp_ms": exps / EXP_PER_S * 1e3,
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms
+                    else "operations",
+                }
+                del sets, q, k, v
+                _emit(row)
+                rows.append(row)
+    return rows
+
+
+def phase_sd_files(task, work: Path, check: Checks) -> dict:
+    """Seeded UNet / VAE / CLIP npz files in the JAX formats, the CLIP
+    token ids and the W4 'mse' weight qstate, as a user would bring them."""
+    from qdiffusion_torch.calib.engine import init_weight_qstate
+    from qdiffusion_torch.convert import to_jax_params
+    from qdiffusion_torch.models.clip_text import CLIPTextEncoder
+    from qdiffusion_torch.models.vae import VAE
+    from qdiffusion_torch.utils.checkpoints import save_nested, \
+        save_pytree, save_qstate
+
+    t0 = time.perf_counter()
+    unet = _sd_unet(task, weight_bit=4)
+    unet.load_state_dict(unet.init_params(0))
+    save_pytree(work / "unet.npz", to_jax_params(unet.state_dict()))
+    t1 = time.perf_counter()
+    q = init_weight_qstate(unet)
+    torch.cuda.synchronize()
+    mse_s = time.perf_counter() - t1
+    save_qstate(work / "w4_qstate.npz", q)
+    del unet, q
+    vae = VAE(task.vae)
+    vae.load_state_dict(vae.init_params(1))
+    save_nested(work / "vae.npz", to_jax_params(vae.state_dict()))
+    clip = CLIPTextEncoder(task.clip)
+    clip.load_state_dict(clip.init_params(2))
+    save_nested(work / "clip.npz", to_jax_params(clip.state_dict()))
+    del vae, clip
+    rng = np.random.default_rng(3)
+    bos, eos = 49406, 49407  # CLIP's start and end (pad) token ids
+    cond = np.full((1, 77), eos, np.int64)
+    cond[0, 0] = bos
+    cond[0, 1:12] = rng.integers(0, bos, 11)
+    uncond = np.full((1, 77), eos, np.int64)
+    uncond[0, 0] = bos
+    np.savez(work / "token_ids.npz", cond=cond, uncond=uncond)
+    torch.cuda.empty_cache()
+    row = {"phase": "sd_files", "seconds": time.perf_counter() - t0,
+           "w4_mse_qstate_seconds": mse_s,
+           "mib": {f.name: f.stat().st_size / 2**20
+                   for f in sorted(work.glob("*.npz"))}}
+    _emit(row)
+    return row
+
+
+def phase_sd_fold_cli(task, work: Path, spy: dict, check: Checks) -> dict:
+    from qdiffusion_torch import cli
+    from qdiffusion_torch.ops.flash_attention import flash_attention
+    from qdiffusion_torch.ops.flash_streaming import \
+        streaming_flash_attention
+    from qdiffusion_torch.ops.groupnorm import fused_group_norm
+
+    batches = SD_N // SD_BATCH
+    calls = SD_STEPS + 1  # PLMS evaluates the first step twice
+    unet, dec = spy["unet_call"], spy["decode"]
+    want = {k: batches * (calls * unet[k] + dec[k]) for k in unet}
+    counters = {"group_norm": fused_group_norm,
+                "flash_attention": flash_attention,
+                "flash_streaming": streaming_flash_attention}
+    for f in counters.values():
+        f.launches = 0
+    res = cli.main(["sample", "--task", "sd_v1",
+                    "--ckpt", str(work / "unet.npz"),
+                    "--vae-ckpt", str(work / "vae.npz"),
+                    "--clip-ckpt", str(work / "clip.npz"),
+                    "--token-ids", str(work / "token_ids.npz"),
+                    "--qstate", str(work / "w4_qstate.npz"),
+                    "--weight-bit", "4", "--engine", "fold",
+                    "--dtype", "bfloat16", "--n", str(SD_N),
+                    "--batch", str(SD_BATCH),
+                    "--npz-out", str(work / "sd_fold.npz"),
+                    "--device", "cuda"])
+    launches = {k: f.launches for k, f in counters.items()}
+    with np.load(res["path"]) as f:
+        imgs = f["arr_0"]
+    check(imgs.shape == (SD_N, 512, 512, 3) and imgs.dtype == np.uint8,
+          f"sd fold npz {imgs.shape} {imgs.dtype}")
+    check(res["nonfinite"] == 0, f"sd fold: {res['nonfinite']} non-finite")
+    check(res["sampler"] == "plms" and res["guidance_scale"] == 7.5
+          and res["steps"] == SD_STEPS, f"sd fold ran {res['sampler']} "
+          f"{res['steps']} steps at scale {res['guidance_scale']}")
+    check(res["model_calls"] == [calls] * batches,
+          f"sd fold: UNet calls per batch {res['model_calls']}")
+    check(launches == want, f"sd fold launches {launches}, expected {want}")
+    secs, dec_s = res["batch_seconds"], res["decode_seconds"]
+    row = {"phase": "sd_fold_cli", "n": SD_N, "batch": SD_BATCH,
+           "steps": SD_STEPS, "guidance_scale": res["guidance_scale"],
+           "batch_seconds": secs, "decode_seconds": dec_s,
+           "img_per_s": SD_BATCH / secs[-1],
+           "s_per_unet_call": (secs[-1] - dec_s[-1]) / calls,
+           "first_batch_img_per_s": SD_BATCH / secs[0],
+           "unet_calls": res["model_calls"], "launches": launches,
+           "expected_launches": want,
+           "image_mean": float(imgs.mean()), "image_std": float(imgs.std())}
+    _emit(row)
+    return row
+
+
+def phase_sd_card_vs_cpu(task, work: Path, check: Checks) -> dict:
+    """One fold W4 UNet call with context at 32x32 latents, batch 2: card
+    bf16 (B1, and B2 at the five 1024-token sites) against CPU f32."""
+    from qdiffusion_torch.cli import load_fp_params
+    from qdiffusion_torch.config import QuantFlags
+    from qdiffusion_torch.deploy import fold_weights
+    from qdiffusion_torch.models.unet_ldm import LDMUNet
+    from qdiffusion_torch.ops.flash_attention import flash_attention
+    from qdiffusion_torch.utils.checkpoints import load_qstate
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((2, 32, 32, 4)).astype(
+        np.float32))
+    t = torch.tensor([10.0, 500.0])
+    c = torch.from_numpy(rng.standard_normal((2, 77, 768)).astype(
+        np.float32))
+    eps, b2 = {}, 0
+    for dev, dtype in (("cpu", None), ("cuda", torch.bfloat16)):
+        model = LDMUNet(task.unet_ldm, QuantFlags(weight_bit=4).policy_ldm(),
+                        device=dev)
+        model.load_state_dict(load_fp_params(work / "unet.npz", model))
+        model.load_state_dict(fold_weights(
+            model, load_qstate(work / "w4_qstate.npz", dev)))
+        xin = x.to(dev)
+        if dtype is not None:
+            model.to(dtype)
+            xin = xin.to(dtype)
+        n = flash_attention.launches
+        with torch.no_grad():
+            eps[dev] = model(xin, t.to(dev), None, c.to(dev)).float().cpu()
+        b2 = flash_attention.launches - n if dev == "cuda" else b2
+        del model
+    ref, got = eps["cpu"], eps["cuda"]
+    rel = float(torch.linalg.vector_norm(got - ref)
+                / torch.linalg.vector_norm(ref))
+    check(bool(torch.isfinite(got).all()), "sd card UNet call not finite")
+    check(b2 == 5, f"sd card vs CPU: {b2} B2 launches, expected 5")
+    check(rel <= REL_L2_CARD_VS_CPU,
+          f"sd card bf16 vs CPU f32 fold call: relative L2 {rel}")
+    row = {"phase": "sd_card_vs_cpu", "batch": 2, "latent": 32,
+           "rel_l2": rel, "tolerance": REL_L2_CARD_VS_CPU,
+           "flash_attention_launches": b2,
+           "max_abs_err": float((got - ref).abs().max()),
+           "ref_abs_max": float(ref.abs().max())}
+    _emit(row)
+    return row
+
+
+def phase_sd_sim(task, work: Path, check: Checks) -> dict:
+    from qdiffusion_torch import cli
+    from qdiffusion_torch.calib.engine import init_act_qstate, \
+        init_weight_qstate
+    from qdiffusion_torch.cli import load_fp_params
+    from qdiffusion_torch.deploy import make_quantized_step
+    from qdiffusion_torch.ops.flash_attention import flash_attention
+    from qdiffusion_torch.ops.flash_streaming import \
+        streaming_flash_attention
+    from qdiffusion_torch.utils.checkpoints import save_qstate
+
+    flags = dict(weight_bit=8, quant_act=True, act_bit=8)
+    model = _sd_unet(task, **flags)
+    model.load_state_dict(load_fp_params(work / "unet.npz", model))
+    t0 = time.perf_counter()
+    xs, ts, cs = _sd_inputs(task, 2, seed=5)
+    qstate = init_act_qstate(model, init_weight_qstate(model), xs, ts, cs)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_act = sum(1 for slots in qstate.values() for s in slots
+                if s not in ("w", "w0"))
+    check(n_act > 0, "sd sim: no activation quantizer initialised")
+    save_qstate(work / "w8a8_qstate.npz", qstate)
+
+    model.to(torch.bfloat16)
+    step = make_quantized_step(model, qstate, engine="sim")
+    x, t, c = _sd_inputs(task, 2 * SD_BATCH, seed=6, dtype=torch.bfloat16)
+    n_sm = flash_attention.launches_sm_q
+    eps = step(x, t, c)
+    torch.cuda.synchronize()
+    step_sm = flash_attention.launches_sm_q - n_sm
+    check(tuple(eps.shape) == tuple(x.shape)
+          and bool(torch.isfinite(eps).all()), "sd sim bf16 step output")
+    check(step_sm == 10, f"sd sim step: {step_sm} B2 launches with sm_q, "
+                         "expected 10")
+    step_ms = _time_ms(lambda: step(x, t, c), reps=2)
+    del model, step, eps
+    torch.cuda.empty_cache()
+
+    n_sm = flash_attention.launches_sm_q
+    n3 = streaming_flash_attention.launches
+    res = cli.main(["sample", "--task", "sd_v1",
+                    "--ckpt", str(work / "unet.npz"),
+                    "--vae-ckpt", str(work / "vae.npz"),
+                    "--clip-ckpt", str(work / "clip.npz"),
+                    "--token-ids", str(work / "token_ids.npz"),
+                    "--qstate", str(work / "w8a8_qstate.npz"),
+                    "--weight-bit", "8", "--quant-act", "--act-bit", "8",
+                    "--engine", "sim", "--dtype", "float32",
+                    "--n", str(SD_BATCH), "--batch", str(SD_BATCH),
+                    "--timesteps", "5",
+                    "--npz-out", str(work / "sd_sim.npz"),
+                    "--device", "cuda"])
+    cli_sm = flash_attention.launches_sm_q - n_sm
+    cli_b3 = streaming_flash_attention.launches - n3
+    check(res["nonfinite"] == 0, f"sd sim PLMS: {res['nonfinite']} "
+                                 "non-finite")
+    check(res["model_calls"] == [6], f"sd sim PLMS-5 calls "
+                                     f"{res['model_calls']}")
+    check(cli_sm == 60 and cli_b3 == 1,
+          f"sd sim PLMS-5: {cli_sm} B2 launches with sm_q (expected 60), "
+          f"{cli_b3} B3 (expected 1)")
+    row = {"phase": "sd_sim", "act_quantizers": n_act,
+           "act_init_seconds": init_s, "bf16_step_batch": 2 * SD_BATCH,
+           "bf16_step_ms": step_ms, "bf16_step_b2_sm_q_launches": step_sm,
+           "plms5_f32_seconds": res["batch_seconds"][0],
+           "plms5_decode_seconds": res["decode_seconds"][0],
+           "plms5_b2_sm_q_launches": cli_sm, "plms5_b3_launches": cli_b3}
+    _emit(row)
+    return row
+
+
+def phase_sd_profile(task, work: Path, out: Path) -> dict:
+    """Three bf16 fold W4 UNet calls at the CFG batch, with context."""
+    from qdiffusion_torch.cli import load_fp_params
+    from qdiffusion_torch.deploy import fold_weights
+    from qdiffusion_torch.utils.checkpoints import load_qstate
+
+    model = _sd_unet(task, weight_bit=4)
+    model.load_state_dict(load_fp_params(work / "unet.npz", model))
+    model.load_state_dict(fold_weights(model, load_qstate(
+        work / "w4_qstate.npz", "cuda")))
+    model.to(torch.bfloat16)
+    x, t, c = _sd_inputs(task, 2 * SD_BATCH, dtype=torch.bfloat16)
+
+    def run():
+        with torch.no_grad():
+            model(x, t, None, c)
+
+    row = {"phase": "sd_profile", **profile_breakdown(
+        run, 3, out / "sd_unet_call_trace.json",
+        f"SD v1 fold W4 bf16 UNet call, batch {2 * SD_BATCH} (CFG)")}
+    _emit(row)
+    return row
+
+
+def _gn_row(rows, where, per, launches):
+    bytes_ms = per_call_sum(rows, "bytes_ms")
+    ops_ms = per_call_sum(rows, "ops_ms")
+    return {
+        "name": "group_norm", "route": "triton",
+        "source": "qdiffusion_torch/ops/groupnorm.py",
+        "replaces": "qdiffusion_tpu/ops/pallas/groupnorm.py:116",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": per_call_sum(rows, "ms"),
+        "plain_ms": per_call_sum(rows, "plain_ms"),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": per_call_sum(rows, "library_ms"),
+        "per": per, "eager_ms": per_call_sum(rows, "eager_ms")}
+
+
+def _attn_row(rows, name, source, replaces, launches, per):
+    sel = [r for r in rows if r["kernel"] == name]
+    main = [r for r in sel if r["dtype"] == "bfloat16" and not r["quant"]]
+    bsum = lambda key: sum(r[key] * r["per_call"] for r in main)
+    bytes_ms, ops_ms = bsum("bytes_ms"), bsum("ops_ms")
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in sel),
+        "ms": bsum("ms"), "plain_ms": bsum("plain_ms"),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": bsum("library_ms"), "per": per}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--out", default=str(Path(__file__).resolve().parent
-                                         / "runs" / "chip_smoke"))
+    root = Path(__file__).resolve().parent
+    p.add_argument("--out", default=str(root / "runs" / "chip_smoke"),
+                   help="report.json and profiler traces")
+    p.add_argument("--work", default=str(root / "runs" / "chip_smoke_work"),
+                   help="the SD weight files (about 4.5 GB), removed at "
+                        "the end")
     p.add_argument("--profile", action="store_true",
-                   help="add a torch.profiler breakdown of the fold step")
+                   help="add torch.profiler breakdowns of a CIFAR fold "
+                        "step and an SD fold UNet call")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -394,17 +936,22 @@ def main(argv=None) -> int:
         return 2
     from qdiffusion_torch import resolve_device
     from qdiffusion_torch.config import PRESETS
+    from qdiffusion_torch.ops import _cuda
+    from qdiffusion_torch.ops.flash_attention import flash_attention
+    from qdiffusion_torch.ops.flash_streaming import \
+        streaming_flash_attention
 
     t_start = time.perf_counter()
-    out = Path(args.out)
+    out, work = Path(args.out), Path(args.work)
     out.mkdir(parents=True, exist_ok=True)
+    work.mkdir(parents=True, exist_ok=True)
     check = Checks()
     resolve_device("cuda")  # pins cudnn / matmul TF32 off
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    import triton  # the kernel's compiler, on the card's machine
+    import triton  # B1's compiler, on the card's machine
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -413,7 +960,13 @@ def main(argv=None) -> int:
            "triton": triton.__version__,
            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
            "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+    t0 = time.perf_counter()
+    built = _cuda.build_all()
+    _emit({"phase": "build", "nvcc_seconds": built,
+           "wall_seconds": time.perf_counter() - t0,
+           "directory": str(_cuda.BUILD), "arch": _cuda.ARCH})
 
+    # CIFAR-10, slice 1's path
     task = PRESETS["cifar10"]
     model = _seeded_model(task)
     n_params = sum(p.numel() for p in model.parameters())
@@ -424,42 +977,76 @@ def main(argv=None) -> int:
            "group_norm_shapes": sorted(set(shapes))})
     check(len(shapes) == 51, f"{len(shapes)} GroupNorms per step, "
                              "expected 51")
-
     per_step = len(shapes)
-    rows = phase_kernels(shapes, check)
+    rows = phase_kernels([(BATCH,) + s[1:] for s in shapes], check,
+                         where="cifar10 UNet step")
     fold = phase_fold(task, out, per_step, check)
-    launches = fold["group_norm_launches"]
+    check(fold["group_norm_launches"] > 0, "cifar fold: B1 not launched")
     card_cpu = phase_card_vs_cpu(task, out, check)
     sim = phase_sim(task, out, per_step, check)
     prof = phase_profile(task, out) if args.profile else None
+    torch.cuda.empty_cache()
 
-    def step_sum(key, dtype="bfloat16"):
-        return sum(r[key] * r["per_step"] for r in rows
-                   if r["dtype"] == dtype)
+    # Stable Diffusion v1, this slice's path
+    sd = PRESETS["sd_v1"]
+    spy = phase_sd_spy(sd, check)
+    gn_unet = phase_kernels(spy["unet_gn_shapes"], check,
+                            dtypes=(torch.bfloat16,), phase="gn_sd",
+                            where="sd_v1 UNet call")
+    gn_dec = phase_kernels(spy["decode_gn_shapes"], check,
+                           dtypes=(torch.bfloat16,), phase="gn_sd",
+                           where="sd_v1 VAE decode")
+    attn = phase_attn_kernels(check)
+    files = phase_sd_files(sd, work, check)
+    sd_fold = phase_sd_fold_cli(sd, work, spy, check)
+    sd_cpu = phase_sd_card_vs_cpu(sd, work, check)
+    sd_sim = phase_sd_sim(sd, work, check)
+    sd_prof = phase_sd_profile(sd, work, out) if args.profile else None
+    sd_launches = sd_fold["launches"]
+    for name, n in sd_launches.items():
+        check(n > 0, f"sd fold: {name} not launched")
 
-    bytes_ms, ops_ms = step_sum("bytes_ms"), step_sum("ops_ms")
-    kernels = [{
-        "name": "group_norm", "route": "triton",
-        "source": "qdiffusion_torch/ops/groupnorm.py",
-        "replaces": "qdiffusion_tpu/ops/pallas/groupnorm.py:116",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": step_sum("ms"), "plain_ms": step_sum("plain_ms"),
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": step_sum("library_ms"),
-        "per": f"the {per_step} GroupNorms of one bf16 UNet step at batch "
-               f"{BATCH}, device time in a CUDA graph; per-shape rows above",
-        "eager_ms": step_sum("eager_ms"),
-        "f32_ms": step_sum("ms", "float32"),
-        "f32_bound_ms": max(step_sum("bytes_ms", "float32"),
-                            step_sum("ops_ms", "float32")),
-    }]
-    report = {"device": device, "nvidia_smi": smi, "kernels": kernels,
-              "kernel_shapes": rows, "fold": fold, "card_vs_cpu": card_cpu,
-              "sim": sim, "profile": prof, "failed": check.failed,
+    gn_sd = gn_unet + gn_dec
+    kernels = [
+        {**_gn_row(gn_sd, "sd",
+                   f"the {len(spy['unet_gn_shapes'])} GroupNorms of one SD "
+                   f"bf16 UNet call at batch {2 * SD_BATCH} plus the "
+                   f"{len(spy['decode_gn_shapes'])} of one VAE decode at "
+                   f"batch {SD_BATCH}; device time in a CUDA graph",
+                   sd_launches["group_norm"]),
+         "launches_by_path": {"cifar10_fold": fold["group_norm_launches"],
+                              "sd_v1_fold": sd_launches["group_norm"]},
+         "cifar10_step_ms": per_call_sum(rows, "ms"),
+         "cifar10_step_bound_ms": max(per_call_sum(rows, "bytes_ms"),
+                                      per_call_sum(rows, "ops_ms"))},
+        _attn_row(attn, "flash_attention",
+                  "qdiffusion_torch/csrc/flash_attention.cu",
+                  "qdiffusion_tpu/ops/pallas/flash_attention.py:170",
+                  sd_launches["flash_attention"],
+                  "the 10 flash sites of one SD bf16 UNet call at batch "
+                  f"{2 * SD_BATCH} (5 x (8,4096,8,40), 5 x (8,1024,8,80)), "
+                  "no quantizer; CUDA graph"),
+        _attn_row(attn, "flash_streaming",
+                  "qdiffusion_torch/csrc/flash_attention.cu",
+                  "qdiffusion_tpu/ops/pallas/flash_streaming.py:153",
+                  sd_launches["flash_streaming"],
+                  f"the VAE mid attention of one bf16 decode at batch "
+                  f"{SD_BATCH} (4,4096,1,512); CUDA graph"),
+    ]
+    report = {"device": device, "nvidia_smi": smi, "build": built,
+              "kernels": kernels, "kernel_shapes": rows, "gn_sd": gn_sd,
+              "attn_kernels": attn, "fold": fold, "card_vs_cpu": card_cpu,
+              "sim": sim, "profile": prof, "sd_spy": {
+                  k: v for k, v in spy.items() if not k.endswith("shapes")},
+              "sd_files": files, "sd_fold": sd_fold,
+              "sd_card_vs_cpu": sd_cpu, "sd_sim": sd_sim,
+              "sd_profile": sd_prof, "failed": check.failed,
+              "launch_totals": {
+                  "flash_attention": flash_attention.launches,
+                  "flash_streaming": streaming_flash_attention.launches},
               "seconds": time.perf_counter() - t_start}
     (out / "report.json").write_text(json.dumps(report, indent=1))
+    shutil.rmtree(work, ignore_errors=True)
     _emit({"kernels": kernels})
     print(smi, flush=True)
     if check.failed:

@@ -15,7 +15,8 @@ from qdiffusion_torch.quant.context import INIT, QuantCtx, QuantMode
 def init_weight_qstate(model) -> dict:
     """Scale-init every weight quantizer from the weights, split-aware
     (reference first-forward init, quant_layer.py:68-75 + set_split,
-    :285-288)."""
+    :285-288), with the policy's scale method ('max' for the pixel
+    UNet, 'mse' for LDM/SD)."""
     qstate: dict = {}
     for name, cfg in model.layer_cfgs.items():
         w = model.get_submodule(name).weight.float()
@@ -30,12 +31,16 @@ def init_weight_qstate(model) -> dict:
 
 @torch.no_grad()
 def init_act_qstate(model, qstate: dict, xs: torch.Tensor,
-                    ts: torch.Tensor) -> dict:
+                    ts: torch.Tensor, cs: torch.Tensor = None) -> dict:
     """First-batch activation scale init with weights quantized (reference
     qnn.set_quant_state(True, True) + one forward,
-    sample_diffusion_ddim.py:203-208). xs: NHWC; returns a new qstate."""
+    sample_diffusion_ddim.py:203-208). xs: NHWC; cs: the cross-attention
+    context of a model that takes one. Returns a new qstate."""
     ctx = QuantCtx(qstate, mode=QuantMode(w=True, a=True), collect=INIT)
-    model(xs, ts, ctx)
+    if cs is None:
+        model(xs, ts, ctx)
+    else:
+        model(xs, ts, ctx, cs)
     new = {k: dict(v) for k, v in qstate.items()}
     for name, slots in ctx.collected.items():
         new.setdefault(name, {}).update(slots)

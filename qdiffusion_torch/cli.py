@@ -1,14 +1,23 @@
 """Command-line entry point of the port (the `sample` subcommand of
-qdiffusion_tpu/cli.py for the pixel family):
+qdiffusion_tpu/cli.py for the pixel, ldm and sd families):
 
-  python -m qdiffusion_torch.cli sample --task cifar10 \
-      --qstate qstate.npz --weight-bit 4 --engine fold --dtype bfloat16 \
+  python -m qdiffusion_torch.cli sample --task cifar10 \\
+      --qstate qstate.npz --weight-bit 4 --engine fold --dtype bfloat16 \\
       --n 128 --batch 64 --npz-out samples/
 
-Runs on the card unless --device cpu. With no --ckpt the parameters are
-initialised from seed 0, as the JAX CLI does (cli.py:349-350). The output
-is the bulk uint8 npz of the JAX CLI (N x H x W x C); PNG output is not
-ported.
+  python -m qdiffusion_torch.cli sample --task sd_v1 --ckpt unet.npz \\
+      --vae-ckpt vae.npz --clip-ckpt clip.npz --token-ids ids.npz \\
+      --qstate w4.npz --weight-bit 4 --engine fold --dtype bfloat16 \\
+      --n 8 --batch 4 --npz-out samples/
+
+Runs on the card unless --device cpu. With no --ckpt the UNet is
+initialised from seed 0, as the JAX CLI does (cli.py:349-350). Checkpoints
+are the JAX package's npz files: the UNet a `save_pytree` npz, the VAE and
+the CLIP text tower `save_nested` npz (torch .ckpt files are not read).
+SD conditioning comes from --token-ids (an npz with 'cond' (P, 77) and
+'uncond' (1, 77) CLIP ids, cli.py:159-163); --prompt and the tokenizer
+are not ported. The output is the bulk uint8 npz of the JAX CLI
+(N x H x W x C); PNG output is not ported.
 """
 
 from __future__ import annotations
@@ -21,7 +30,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from qdiffusion_torch.convert import from_jax_params, to_jax_params
+from qdiffusion_torch.convert import from_jax_params, jax_param_shapes
 from qdiffusion_torch.device import resolve_device
 
 
@@ -35,20 +44,52 @@ def resolve_task(args):
                          f"(presets: {sorted(PRESETS)})")
 
 
-def build_model_and_pipeline(task, qflags=None, device="cuda"):
-    from qdiffusion_torch.models.unet_ddim import DDIMUNet
-    from qdiffusion_torch.pipelines import PixelDiffusionPipeline
+def _schedule(task):
     from qdiffusion_torch.schedules import NoiseSchedule
 
     s = task.schedule
-    sched = NoiseSchedule.ddpm(s.beta_schedule, s.beta_start, s.beta_end,
-                               s.num_timesteps)
-    cfg = task.unet_ddim
-    if qflags is not None and qflags.split:
-        cfg = dataclasses.replace(cfg, split_shortcut=True)
-    policy = qflags.policy_ddim() if qflags else None
-    model = DDIMUNet(cfg, policy, device=device)
-    return model, PixelDiffusionPipeline(model, sched)
+    if s.kind == "ddpm":
+        return NoiseSchedule.ddpm(s.beta_schedule, s.beta_start, s.beta_end,
+                                  s.num_timesteps)
+    return NoiseSchedule.ldm(s.beta_schedule, s.num_timesteps, s.beta_start,
+                             s.beta_end)
+
+
+def build_model_and_pipeline(task, qflags=None, device="cuda"):
+    from qdiffusion_torch.pipelines import (
+        LatentDiffusionPipeline,
+        PixelDiffusionPipeline,
+    )
+
+    sched = _schedule(task)
+    split = qflags is not None and qflags.split
+    if task.family == "pixel":
+        from qdiffusion_torch.models.unet_ddim import DDIMUNet
+
+        cfg = dataclasses.replace(task.unet_ddim, split_shortcut=True) \
+            if split else task.unet_ddim
+        policy = qflags.policy_ddim() if qflags else None
+        model = DDIMUNet(cfg, policy, device=device)
+        return model, PixelDiffusionPipeline(model, sched)
+
+    from qdiffusion_torch.models.clip_text import (
+        CLIPTextConfig,
+        CLIPTextEncoder,
+    )
+    from qdiffusion_torch.models.unet_ldm import LDMUNet
+    from qdiffusion_torch.models.vae import VAE
+
+    cfg = dataclasses.replace(task.unet_ldm, split_shortcut=True) \
+        if split else task.unet_ldm
+    policy = qflags.policy_ldm() if qflags else None
+    model = LDMUNet(cfg, policy, device=device)
+    text = CLIPTextEncoder(task.clip or CLIPTextConfig(), device=device) \
+        if task.family == "sd" else None
+    pipe = LatentDiffusionPipeline(
+        unet=model, vae=VAE(task.vae, device=device), schedule=sched,
+        scale_factor=task.scale_factor,
+        conditioning_key=task.conditioning_key, text_encoder=text)
+    return model, pipe
 
 
 def load_fp_params(path, model) -> dict:
@@ -59,8 +100,52 @@ def load_fp_params(path, model) -> dict:
     if path.suffix != ".npz":
         raise SystemExit(f"--ckpt {path}: only the JAX package's params npz "
                          "is read by the port")
-    like = to_jax_params(model.state_dict())
-    return from_jax_params(load_pytree(path, like))
+    return from_jax_params(load_pytree(path,
+                                       jax_param_shapes(model.state_dict())))
+
+
+def load_nested_params(path, flag: str) -> dict:
+    """A JAX `save_nested` npz (the VAE, the CLIP tower), as a
+    state_dict."""
+    from qdiffusion_torch.utils.checkpoints import load_nested
+
+    path = Path(path)
+    if path.suffix != ".npz":
+        raise SystemExit(f"{flag} {path}: only the JAX package's nested npz "
+                         "is read by the port")
+    return from_jax_params(load_nested(path))
+
+
+def build_conditioning(args, task, pipe, device):
+    """(cond (P, 77, D), uncond (1, 77, D)) from --token-ids through the
+    CLIP tower in f32 (the JAX CLI leaves the context in f32 under
+    --dtype bfloat16, cli.py:410); (None, None) without them."""
+    if task.family != "sd" or not args.token_ids:
+        if task.family == "sd":
+            print("sd task without --token-ids: sampling unconditionally "
+                  "(no CFG)")
+        return None, None
+    if not args.clip_ckpt:
+        raise SystemExit("--token-ids needs the CLIP text weights: "
+                         "--clip-ckpt clip.npz")
+    pipe.text_encoder.load_state_dict(
+        load_nested_params(args.clip_ckpt, "--clip-ckpt"))
+    with np.load(args.token_ids) as data:
+        ids = [torch.from_numpy(np.asarray(data[k], np.int64)).to(device)
+               for k in ("cond", "uncond")]
+    return tuple(pipe.get_learned_conditioning(i) for i in ids)
+
+
+def tile_conditioning(cond, uncond, n):
+    """(P, L, D) prompt rows to a batch of n, the uncond row to n
+    (cli.py:187-199, serving.py:315-319)."""
+    if cond is None:
+        return None, None
+    if n % cond.shape[0]:
+        raise SystemExit(f"batch {n} not divisible by {cond.shape[0]} "
+                         "prompts")
+    return (cond.repeat(n // cond.shape[0], 1, 1),
+            uncond[:1].expand(n, -1, -1))
 
 
 def _item_noise(seeds, shape) -> torch.Tensor:
@@ -70,6 +155,11 @@ def _item_noise(seeds, shape) -> torch.Tensor:
     return torch.stack([
         torch.randn(shape, generator=torch.Generator().manual_seed(int(s)))
         for s in seeds])
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def cmd_sample(args) -> dict:
@@ -85,12 +175,18 @@ def cmd_sample(args) -> dict:
           f"{torch.backends.cuda.matmul.allow_tf32} (float32 in full "
           "precision)")
     task = resolve_task(args)
+    pixel = task.family == "pixel"
     qflags = QuantFlags(weight_bit=args.weight_bit, quant_act=args.quant_act,
                         act_bit=args.act_bit, split=args.split) \
         if args.qstate else None
     model, pipe = build_model_and_pipeline(task, qflags, device)
     model.load_state_dict(load_fp_params(args.ckpt, model) if args.ckpt
                           else model.init_params(0))
+    if not pixel:
+        if not args.vae_ckpt:
+            raise SystemExit("--vae-ckpt required for latent-space tasks")
+        pipe.vae.load_state_dict(load_nested_params(args.vae_ckpt,
+                                                    "--vae-ckpt"))
 
     qstate, mode = None, None
     if args.qstate:
@@ -103,32 +199,66 @@ def cmd_sample(args) -> dict:
             qstate = None
         else:
             mode = QuantMode(w=True, a=args.quant_act)
-    # --dtype bfloat16: bf16 params and model carrier; the sampler math
-    # stays f32 (samplers/ddim.py)
+    cond, uncond = (None, None) if pixel else build_conditioning(
+        args, task, pipe, device)
+    # --dtype bfloat16: bf16 params and carrier for the UNet and the VAE;
+    # the sampler math and the CLIP context stay f32
     eval_dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
     if eval_dtype is not None:
         model.to(eval_dtype)
+        if not pixel:
+            pipe.vae.to(eval_dtype)
 
     steps = args.timesteps or task.sampler.timesteps
-    shape = (task.image_size, task.image_size, task.channels)
-    images, batch_seconds, nonfinite = [], [], 0
-    idx = 0
+    scale = args.scale if args.scale is not None \
+        else task.sampler.guidance_scale
+    sampler = args.sampler or task.sampler.sample_type
+    calls = [0]
+    if not pixel:
+        base_fn = pipe.model_fn(qstate, mode)
+
+        def model_fn(x, t, context=None):
+            calls[0] += 1
+            return base_fn(x, t, context)
+
+    images, batch_seconds, decode_seconds, model_calls = [], [], [], []
+    nonfinite, idx = 0, 0
     while idx < args.n:
         n = min(args.batch, args.n - idx)
         seeds = np.arange(idx, idx + n, dtype=np.int64) \
             + np.int64(args.seed) * 1000003
-        x0 = _item_noise(seeds, shape).to(device)
+        calls[0] = 0
         t0 = time.perf_counter()
-        x = pipe.sample(n, timesteps=steps, skip_type=task.sampler.skip_type,
-                        eta=task.sampler.eta,
-                        sample_type=task.sampler.sample_type,
-                        qstate=qstate, mode=mode, x_init=x0,
-                        eval_dtype=eval_dtype)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        batch_seconds.append(time.perf_counter() - t0)
-        nonfinite += int((~torch.isfinite(x)).sum())
-        imgs = inverse_data_transform(x.float())
+        if pixel:
+            x0 = _item_noise(seeds, (task.image_size, task.image_size,
+                                     task.channels)).to(device)
+            x = pipe.sample(n, timesteps=steps,
+                            skip_type=task.sampler.skip_type,
+                            eta=task.sampler.eta, sample_type=sampler,
+                            qstate=qstate, mode=mode, x_init=x0,
+                            eval_dtype=eval_dtype)
+            _sync(device)
+            batch_seconds.append(time.perf_counter() - t0)
+            nonfinite += int((~torch.isfinite(x)).sum())
+            imgs = inverse_data_transform(x.float())
+        else:
+            x0 = _item_noise(seeds, (task.latent_size, task.latent_size,
+                                     task.latent_channels)).to(device)
+            cond_n, uncond_n = tile_conditioning(cond, uncond, n)
+            z = pipe.sample(n, sampler=sampler, steps=steps,
+                            eta=task.sampler.eta, cond=cond_n,
+                            uncond=uncond_n, guidance_scale=scale,
+                            model_fn=model_fn, decode=False, x_init=x0,
+                            eval_dtype=eval_dtype)
+            _sync(device)
+            t1 = time.perf_counter()
+            imgs = pipe.decode(z, eval_dtype)
+            _sync(device)
+            decode_seconds.append(time.perf_counter() - t1)
+            batch_seconds.append(time.perf_counter() - t0)
+            model_calls.append(calls[0])
+            nonfinite += int((~torch.isfinite(imgs)).sum()) \
+                + int((~torch.isfinite(z)).sum())
         images.append((imgs.cpu().numpy() * 255.0).astype(np.uint8))
         idx += n
 
@@ -142,16 +272,33 @@ def cmd_sample(args) -> dict:
     print(f"sampled {all_img.shape[0]} images ({steps} steps, "
           f"{len(batch_seconds)} batches) in {total:.3f} s on {device}; "
           f"wrote {all_img.shape} -> {out}")
-    return {"path": str(out), "n": int(all_img.shape[0]), "steps": steps,
-            "batch_seconds": batch_seconds, "nonfinite": nonfinite}
+    res = {"path": str(out), "n": int(all_img.shape[0]), "steps": steps,
+           "batch_seconds": batch_seconds, "nonfinite": nonfinite}
+    if not pixel:
+        res.update(decode_seconds=decode_seconds, model_calls=model_calls,
+                   sampler=sampler, guidance_scale=scale)
+    return res
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m qdiffusion_torch.cli")
     sub = p.add_subparsers(dest="cmd", required=True)
-    sp = sub.add_parser("sample", help="generate images (pixel family)")
+    sp = sub.add_parser("sample", help="generate images")
     sp.add_argument("--task", required=True)
-    sp.add_argument("--ckpt", help="FP params npz (JAX save_pytree format)")
+    sp.add_argument("--ckpt", help="FP UNet params npz (JAX save_pytree "
+                                   "format)")
+    sp.add_argument("--vae-ckpt", help="VAE params npz (JAX save_nested "
+                                       "format; latent tasks)")
+    sp.add_argument("--clip-ckpt", help="CLIP text-tower params npz (JAX "
+                                        "save_nested format; sd tasks)")
+    sp.add_argument("--token-ids",
+                    help="npz with 'cond' (P, 77) and 'uncond' (1, 77) CLIP "
+                         "token ids (sd tasks)")
+    sp.add_argument("--scale", type=float,
+                    help="CFG guidance scale (default: task preset)")
+    sp.add_argument("--sampler",
+                    help="sampler (default: task preset; latent tasks: "
+                         "ddim or plms)")
     sp.add_argument("--qstate", help="calibrated qstate npz (JAX format)")
     sp.add_argument("--weight-bit", type=int, default=8)
     sp.add_argument("--quant-act", action="store_true")

@@ -1,19 +1,24 @@
-"""Task presets and quantization flags (the pixel-family part of
+"""Task presets and quantization flags (port of part of
 qdiffusion_tpu/config.py). `cifar10` reproduces the reference's
-configs/cifar10.yml with the sample_diffusion_ddim.py defaults."""
+configs/cifar10.yml with the sample_diffusion_ddim.py defaults; `sd_v1`
+its configs/stable-diffusion/v1-inference.yaml with the txt2img.py
+sampler (PLMS-50, guidance 7.5). The LSUN presets are not ported."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+from qdiffusion_torch.models.clip_text import CLIPTextConfig
 from qdiffusion_torch.models.unet_ddim import DDIMUNetConfig, QuantPolicy
+from qdiffusion_torch.models.unet_ldm import LDMQuantPolicy, LDMUNetConfig
+from qdiffusion_torch.models.vae import VAEConfig
 from qdiffusion_torch.quant.affine import AffineQuantizerSpec
 
 
 @dataclasses.dataclass(frozen=True)
 class ScheduleConfig:
-    kind: str = "ddpm"
+    kind: str = "ddpm"  # 'ddpm' (get_beta_schedule) | 'ldm' (make_beta_schedule)
     beta_schedule: str = "linear"
     beta_start: float = 1e-4
     beta_end: float = 2e-2
@@ -26,6 +31,7 @@ class SamplerConfig:
     timesteps: int = 100
     skip_type: str = "quad"
     eta: float = 0.0
+    guidance_scale: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +44,7 @@ class QuantFlags:
     a_sym: bool = False
     sm_abit: int = 8
     split: bool = False
+    a_min_max: bool = False  # LDM: act scale init 'max' instead of 'mse'
 
     def policy_ddim(self) -> QuantPolicy:
         """CIFAR policy: 'max' scale methods
@@ -50,16 +57,35 @@ class QuantFlags:
                                    leaf_param=self.quant_act),
             sm_abit=self.sm_abit)
 
+    def policy_ldm(self) -> LDMQuantPolicy:
+        """LDM/SD policy: 'mse' weights, 'mse' or 'max' activations
+        (sample_diffusion_ldm.py:456-462, txt2img.py:373-383)."""
+        return LDMQuantPolicy(
+            wq=AffineQuantizerSpec(n_bits=self.weight_bit, channel_wise=True,
+                                   channel_axis=0, scale_method="mse"),
+            aq=AffineQuantizerSpec(
+                n_bits=self.act_bit, symmetric=self.a_sym,
+                scale_method="max" if self.a_min_max else "mse",
+                leaf_param=self.quant_act),
+            sm_abit=self.sm_abit)
+
 
 @dataclasses.dataclass(frozen=True)
 class TaskConfig:
     name: str
-    family: str  # 'pixel' only in the port so far
+    family: str  # 'pixel' | 'ldm' | 'sd'
     schedule: ScheduleConfig
     sampler: SamplerConfig
     image_size: int = 32
     channels: int = 3
+    latent_size: int = 0
+    latent_channels: int = 0
+    scale_factor: float = 1.0
     unet_ddim: Optional[DDIMUNetConfig] = None
+    unet_ldm: Optional[LDMUNetConfig] = None
+    vae: Optional[VAEConfig] = None
+    conditioning_key: Optional[str] = None
+    clip: Optional[CLIPTextConfig] = None  # text tower ('sd' family)
 
 
 CIFAR10 = TaskConfig(
@@ -71,4 +97,22 @@ CIFAR10 = TaskConfig(
                              ch_mult=(1, 2, 2, 2), num_res_blocks=2,
                              attn_resolutions=(16,), resolution=32))
 
-PRESETS = {c.name: c for c in (CIFAR10,)}
+SD_V1 = TaskConfig(
+    name="sd_v1", family="sd",
+    schedule=ScheduleConfig("ldm", "linear", 0.00085, 0.012, 1000),
+    sampler=SamplerConfig("plms", 50, "uniform", 0.0, guidance_scale=7.5),
+    image_size=512, channels=3, latent_size=64, latent_channels=4,
+    scale_factor=0.18215, conditioning_key="crossattn",
+    unet_ldm=LDMUNetConfig(image_size=32, in_channels=4, out_channels=4,
+                           model_channels=320,
+                           attention_resolutions=(4, 2, 1),
+                           num_res_blocks=2, channel_mult=(1, 2, 4, 4),
+                           num_heads=8, use_spatial_transformer=True,
+                           transformer_depth=1, context_dim=768,
+                           legacy=False),
+    vae=VAEConfig(ch=128, out_ch=3, ch_mult=(1, 2, 4, 4), num_res_blocks=2,
+                  attn_resolutions=(), in_channels=3, resolution=256,
+                  z_channels=4, double_z=True, embed_dim=4),
+    clip=CLIPTextConfig())
+
+PRESETS = {c.name: c for c in (CIFAR10, SD_V1)}

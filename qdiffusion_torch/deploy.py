@@ -67,7 +67,8 @@ def fold_weights(model, qstate: dict,
 
 def make_quantized_step(model, qstate: dict, engine: str = "fold",
                         dtype: Optional[torch.dtype] = None) -> Callable:
-    """Quantized denoise step (x, t) -> eps, x NHWC.
+    """Quantized denoise step (x, t[, context]) -> eps, x NHWC; context
+    is the cross-attention input of a model that takes one (LDMUNet).
 
     fold: a copy of the model holding the folded weights, cast to `dtype`
     (default: the model's); the caller feeds x in that dtype. sim: every
@@ -83,15 +84,20 @@ def make_quantized_step(model, qstate: dict, engine: str = "fold",
             folded.to(dtype)
 
         @torch.no_grad()
-        def fold_step(x, t):
-            return folded(x, t)
+        def fold_step(x, t, context=None):
+            if context is None:
+                return folded(x, t)
+            return folded(x, t, None, context)
 
         return fold_step
 
     mode = QuantMode(w=True, a=True)
 
     @torch.no_grad()
-    def sim_step(x, t):
-        return model(x, t, QuantCtx(qstate, mode=mode)).to(x.dtype)
+    def sim_step(x, t, context=None):
+        ctx = QuantCtx(qstate, mode=mode)
+        out = model(x, t, ctx) if context is None else model(x, t, ctx,
+                                                            context)
+        return out.to(x.dtype)
 
     return sim_step

@@ -12,6 +12,7 @@ A model registers, while it builds its submodules:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List
 
 import torch
@@ -27,6 +28,57 @@ class ReconUnit:
     kind: str  # 'layer' | 'resnet' | 'attn'
     layer_names: List[str]  # quantizable conv/linear sites inside
     takes_temb: bool = False
+
+
+class Params(torch.nn.Module):
+    """A parameter holder: `weight` of the given shape and optionally a
+    `bias` of shape (shape[0],), allocated uninitialised on the current
+    default device (the models load their weights after construction).
+    Serves as conv, conv1d, linear, norm and embedding alike; the model's
+    forward decides what it computes."""
+
+    def __init__(self, *shape: int, bias: bool = True):
+        super().__init__()
+        self.weight = torch.nn.Parameter(torch.empty(shape))
+        self.register_parameter(
+            "bias", torch.nn.Parameter(torch.empty(shape[0])) if bias
+            else None)
+
+
+def put(root: torch.nn.Module, path: str, module: torch.nn.Module):
+    """Register `module` at the dotted state_dict path under `root`,
+    creating empty intermediate modules ('input_blocks.1.0.in_layers.2')."""
+    node = root
+    *parents, leaf = path.split(".")
+    for part in parents:
+        child = node._modules.get(part)
+        if child is None:
+            child = torch.nn.Module()
+            node.add_module(part, child)
+        node = child
+    node.add_module(leaf, module)
+    return module
+
+
+@torch.no_grad()
+def seeded_params(module: torch.nn.Module, seed: int) -> dict:
+    """A seeded random state_dict on the module's device, drawn in
+    state_dict order with a torch.Generator: every weight of rank >= 2
+    N(0, 1/fan_in), norm scales (1-D `weight`) 1, biases 0. No branch is
+    zero-initialised, so every path of a random model reaches its output."""
+    sd = module.state_dict()
+    dev = next(iter(sd.values())).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, p in sd.items():
+        if p.ndim >= 2:
+            out[name] = torch.randn(p.shape, generator=gen, device=dev) \
+                / math.sqrt(math.prod(p.shape[1:]))
+        elif name.endswith("weight"):
+            out[name] = torch.ones(p.shape, device=dev)
+        else:
+            out[name] = torch.zeros(p.shape, device=dev)
+    return out
 
 
 class QuantModelBase(torch.nn.Module):

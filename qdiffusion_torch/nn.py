@@ -55,20 +55,43 @@ def group_norm_swish(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return swish(group_norm(x, scale, bias, num_groups=num_groups, eps=eps))
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in f32 (biased variance), the result
+    in x's dtype (JAX nn.py:117-123)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
 def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU."""
+    return F.gelu(x, approximate="none")
+
+
 def timestep_embedding(t: torch.Tensor, dim: int, *,
-                       max_period: float = 10000.0) -> torch.Tensor:
-    """Sinusoidal embedding, fairseq variant of the DDIM lineage (freqs
-    over half_dim-1, sin|cos; reference ddim/models/diffusion.py:6-24).
-    f32 result of shape (B, dim)."""
+                       max_period: float = 10000.0,
+                       fairseq: bool = True) -> torch.Tensor:
+    """Sinusoidal embedding, f32 of shape (B, dim). fairseq=True: the DDIM
+    lineage (freqs over half_dim-1, sin|cos; reference
+    ddim/models/diffusion.py:6-24); fairseq=False: the LDM lineage (freqs
+    over half, cos|sin; reference ldm util.py:151-171)."""
     half = dim // 2
-    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=t.device)
-                      * -(math.log(max_period) / (half - 1)))
+    ar = torch.arange(half, dtype=torch.float32, device=t.device)
+    if fairseq:
+        freqs = torch.exp(ar * -(math.log(max_period) / (half - 1)))
+    else:
+        freqs = torch.exp(-math.log(max_period) * ar / half)
     args = t.float()[:, None] * freqs[None, :]
-    emb = torch.cat([torch.sin(args), torch.cos(args)], dim=1)
+    pair = (torch.sin(args), torch.cos(args)) if fairseq else \
+        (torch.cos(args), torch.sin(args))
+    emb = torch.cat(pair, dim=1)
     if dim % 2 == 1:
         emb = F.pad(emb, (0, 1))
     return emb

@@ -7,9 +7,10 @@ the two concatenated halves of the input channels, and the matching
 weight column blocks, get independent quantizers (slots 'w'/'a' for the
 first half, 'w0'/'a0' for the second) before one fused conv.
 
-Layouts: activations NCHW (split on axis 1), conv weights OIHW and dense
-weights (out, in), both with input channels on axis 1 (IN_AXIS; the JAX
-package's HWIO and (in, out) weights keep them on 2 and 0).
+Layouts: activations NCHW (split on axis 1) or tokens (B, T, C) (split
+on the last axis); conv weights OIHW, conv1d weights (out, in, 1) and
+dense weights (out, in), all with input channels on axis 1 (IN_AXIS; the
+JAX package's HWIO, LIO and (in, out) weights keep them on 2, 1 and 0).
 """
 
 from __future__ import annotations
@@ -35,11 +36,12 @@ class LayerQuantConfig:
 
 
 def _quant_input(ctx: QuantCtx, name: str, x: torch.Tensor,
-                 cfg: LayerQuantConfig) -> torch.Tensor:
+                 cfg: LayerQuantConfig, axis: int = 1) -> torch.Tensor:
     if cfg.split:
-        x0 = ctx.act_quant(name, "a", x[:, : cfg.split], cfg.aq)
-        x1 = ctx.act_quant(name, "a0", x[:, cfg.split:], cfg.aq)
-        return torch.cat([x0, x1], dim=1)
+        x0 = ctx.act_quant(name, "a", x.narrow(axis, 0, cfg.split), cfg.aq)
+        x1 = ctx.act_quant(name, "a0", x.narrow(
+            axis, cfg.split, x.shape[axis] - cfg.split), cfg.aq)
+        return torch.cat([x0, x1], dim=axis)
     return ctx.act_quant(name, "a", x, cfg.aq)
 
 
@@ -67,8 +69,18 @@ def qconv2d(ctx: QuantCtx, name: str, layer: torch.nn.Conv2d,
     return nn.conv2d(x, w, layer.bias, stride=stride, padding=padding)
 
 
+def qconv1d(ctx: QuantCtx, name: str, layer, x: torch.Tensor,
+            cfg: LayerQuantConfig) -> torch.Tensor:
+    """Kernel-size-1 conv1d over tokens (B, T, C) with an (out, in, 1)
+    weight: the legacy AttentionBlock's qkv / proj_out (the JAX package
+    runs it as an NWC conv; k=1 makes it a dense over channels)."""
+    x = _quant_input(ctx, name, x, cfg, axis=-1)
+    w = _quant_weight(ctx, name, layer.weight, cfg)
+    return nn.dense(x, w[..., 0], layer.bias)
+
+
 def qdense(ctx: QuantCtx, name: str, layer: torch.nn.Linear, x: torch.Tensor,
            cfg: LayerQuantConfig) -> torch.Tensor:
-    x = _quant_input(ctx, name, x, cfg)
+    x = _quant_input(ctx, name, x, cfg, axis=-1)
     w = _quant_weight(ctx, name, layer.weight, cfg)
     return nn.dense(x, w, layer.bias)

@@ -1,17 +1,23 @@
-"""Pixel-space generation pipeline (port of
-qdiffusion_tpu/pipelines.py::PixelDiffusionPipeline; reference
-scripts/sample_diffusion_ddim.py Diffusion runner). Only the
-'generalized' (DDIM) sample type is ported so far."""
+"""Generation pipelines (port of qdiffusion_tpu/pipelines.py): the
+pixel-space PixelDiffusionPipeline (reference
+scripts/sample_diffusion_ddim.py Diffusion runner; only the 'generalized'
+DDIM sample type is ported) and the latent LatentDiffusionPipeline
+(reference ldm/models/diffusion/ddpm.py LatentDiffusion)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from qdiffusion_torch.quant.context import QuantCtx, QuantMode
 from qdiffusion_torch.samplers.ddim import ddim_sample
+from qdiffusion_torch.samplers.ldm import (
+    DDIMTables,
+    ddim_sample_ldm,
+    plms_sample,
+)
 from qdiffusion_torch.schedules import NoiseSchedule, make_skip_sequence
 
 
@@ -50,3 +56,86 @@ class PixelDiffusionPipeline:
                                  skip_type)
         return ddim_sample(fn, x, seq, self.schedule.betas, eta=eta,
                            generator=generator, eval_dtype=eval_dtype)
+
+
+@dataclasses.dataclass
+class LatentDiffusionPipeline:
+    """LDM / Stable Diffusion pipeline: the UNet in latent space, the
+    first-stage decode and, for SD, CLIP text conditioning (port of the
+    JAX LatentDiffusionPipeline; conditioning keys None and 'crossattn',
+    DiffusionWrapper.forward, ddpm.py:1419-1445). 'concat', 'hybrid' and
+    'adm' are not ported."""
+
+    unet: torch.nn.Module
+    vae: torch.nn.Module
+    schedule: NoiseSchedule
+    scale_factor: float = 1.0
+    conditioning_key: Optional[str] = None
+    text_encoder: Optional[torch.nn.Module] = None
+
+    def model_fn(self, qstate: Optional[dict] = None,
+                 mode: Optional[QuantMode] = None) -> Callable:
+        """(x, t, context) -> eps; with a qstate every call runs the sim
+        engine under `mode`."""
+        if self.conditioning_key not in (None, "crossattn"):
+            raise NotImplementedError(self.conditioning_key)
+
+        def fn(x, t, context=None):
+            ctx = QuantCtx(qstate, mode=mode) if qstate is not None else None
+            return self.unet(x, t, ctx, context=context)
+
+        return fn
+
+    @torch.no_grad()
+    def get_learned_conditioning(self, input_ids: torch.Tensor
+                                 ) -> torch.Tensor:
+        return self.text_encoder(input_ids)
+
+    def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
+        return self.vae.decode(z / self.scale_factor)
+
+    @torch.no_grad()
+    def sample(self, n: int, *, sampler: str = "ddim", steps: int = 50,
+               eta: float = 0.0, latent_size: int = 64,
+               latent_channels: int = 4,
+               cond: Optional[torch.Tensor] = None,
+               uncond: Optional[torch.Tensor] = None,
+               guidance_scale: float = 1.0,
+               generator: Optional[torch.Generator] = None,
+               qstate: Optional[dict] = None,
+               mode: Optional[QuantMode] = None,
+               model_fn: Optional[Callable] = None, decode: bool = True,
+               x_init: Optional[torch.Tensor] = None,
+               eval_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """n samples: images NHWC in [0, 1] (f32), or the latents when
+        decode is False. The initial noise is x_init, or drawn from
+        `generator` on the UNet's device."""
+        device = next(self.unet.parameters()).device
+        x = x_init if x_init is not None else torch.randn(
+            (n, latent_size, latent_size, latent_channels),
+            generator=generator, device=device)
+        fn = model_fn or self.model_fn(qstate, mode)
+        ac = self.schedule.alphas_cumprod
+        if sampler == "ddim":
+            z = ddim_sample_ldm(fn, x, DDIMTables.build(ac, steps, eta),
+                                cond=cond, uncond=uncond,
+                                guidance_scale=guidance_scale,
+                                eta_noise=eta > 0, generator=generator,
+                                eval_dtype=eval_dtype)
+        elif sampler == "plms":
+            z = plms_sample(fn, x, DDIMTables.build(ac, steps, 0.0),
+                            cond=cond, uncond=uncond,
+                            guidance_scale=guidance_scale,
+                            eval_dtype=eval_dtype)
+        else:
+            raise NotImplementedError(sampler)
+        return self.decode(z, eval_dtype) if decode else z
+
+    @torch.no_grad()
+    def decode(self, z: torch.Tensor,
+               eval_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Latents -> images NHWC in [0, 1], f32. A bf16 deployment
+        decodes in the carrier and clips in f32 (JAX pipelines.py:188-196)."""
+        img = self.decode_first_stage(
+            z if eval_dtype is None else z.to(eval_dtype))
+        return torch.clamp((img.float() + 1.0) / 2.0, 0.0, 1.0)

@@ -8,7 +8,9 @@ the raw span, EMA momentum 0.95.
 
 Weights in the port are OIHW / (out, in), so a per-output-channel weight
 spec uses `channel_axis=0` where the JAX package (HWIO) uses -1. The
-'mse' scale search is not ported yet (the CIFAR policy uses 'max').
+'mse' scale search (LDM/SD policy) loops over its 80 shrink candidates
+instead of building the JAX package's (C, 80, N) tensor, so a
+1280x2560x3x3 weight costs one weight-sized temporary, not 80.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 __all__ = [
     "AffineQuantizerSpec",
     "round_ste",
+    "lp_loss",
     "fake_quant",
     "init_scale",
     "init_state",
@@ -51,6 +54,16 @@ def round_ste(x: torch.Tensor) -> torch.Tensor:
     """Round half to even with a straight-through gradient; the same
     x + (round(x) - x) arithmetic as the JAX form."""
     return x + (torch.round(x) - x).detach()
+
+
+def lp_loss(pred: torch.Tensor, tgt: torch.Tensor, p: float = 2.0,
+            reduction: str = "none", axis: int = 1) -> torch.Tensor:
+    """L_p reconstruction loss: reduction='none' sums |pred-tgt|^p over
+    `axis`, then means the rest (reference quant_layer.py:26-33)."""
+    err = torch.abs(pred - tgt) ** p
+    if reduction == "none":
+        return torch.mean(torch.sum(err, dim=axis))
+    return torch.mean(err)
 
 
 def fake_quant(x: torch.Tensor, delta, zero_point,
@@ -85,21 +98,65 @@ def _minmax_scale(x_min, x_max, spec: AffineQuantizerSpec):
     return delta, zero_point
 
 
+def _mse_scale(x2d: torch.Tensor, spec: AffineQuantizerSpec):
+    """'mse' scale search (JAX affine.py:120-153, reference
+    quant_layer.py:162-190) over the rows of x2d (C, N): shrink factors
+    1 - 0.01 i for i in [0, 80), score mean |x - q(x)|^2.4, the first
+    minimum kept (argmin). The candidate clamps to [0, n_levels - 1] and
+    its delta divides by 2**n_bits - 1, as in the reference."""
+    n_bits, n_levels = spec.n_bits, spec.n_levels
+    x2d = x2d.float()
+    x_max = x2d.amax(dim=1)
+    x_min = x2d.amin(dim=1)
+    shrink = 1.0 - 0.01 * torch.arange(80, dtype=torch.float32,
+                                       device=x2d.device)
+    best_score = best_delta = best_zp = None
+    for i in range(80):
+        new_max = x_max * shrink[i]
+        new_min = x_min * shrink[i]
+        if spec.always_zero:
+            delta = new_max / (2**n_bits - 1)
+            zp = torch.zeros_like(delta)
+        else:
+            delta = (new_max - new_min) / (2**n_bits - 1)
+            zp = torch.round(-new_min / torch.clamp(delta, min=1e-12))
+        delta = torch.clamp(delta, min=1e-8)
+        xq = torch.round(x2d / delta[:, None])
+        xq = torch.clamp(xq + zp[:, None], 0, n_levels - 1)
+        xq = (xq - zp[:, None]) * delta[:, None]
+        score = torch.mean(torch.abs(x2d - xq) ** 2.4, dim=1)
+        if best_score is None:
+            best_score, best_delta, best_zp = score, delta, zp
+        else:
+            better = score < best_score
+            best_score = torch.where(better, score, best_score)
+            best_delta = torch.where(better, delta, best_delta)
+            best_zp = torch.where(better, zp, best_zp)
+    return best_delta, best_zp
+
+
+def _scale(xc: torch.Tensor, spec: AffineQuantizerSpec):
+    """(delta, zero_point) per row of xc (C, N)."""
+    if "max" in spec.scale_method:
+        return _minmax_scale(xc.amin(dim=1), xc.amax(dim=1), spec)
+    if spec.scale_method == "mse":
+        return _mse_scale(xc, spec)
+    raise NotImplementedError(spec.scale_method)
+
+
 def init_scale(x: torch.Tensor, spec: AffineQuantizerSpec):
     """(delta, zero_point) from a representative tensor. Per-channel when
     spec.channel_wise: the result broadcasts against x (1s everywhere but
     the channel axis)."""
-    if "max" not in spec.scale_method:
-        raise NotImplementedError(spec.scale_method)
     if spec.channel_wise:
         axis = spec.channel_axis % x.ndim
         xc = torch.movedim(x, axis, 0).reshape(x.shape[axis], -1)
-        delta, zp = _minmax_scale(xc.amin(dim=1), xc.amax(dim=1),
-                                  spec.replace(channel_wise=False))
+        delta, zp = _scale(xc, spec.replace(channel_wise=False))
         shape = [1] * x.ndim
         shape[axis] = x.shape[axis]
         return delta.reshape(shape), zp.reshape(shape)
-    return _minmax_scale(x.amin(), x.amax(), spec)
+    delta, zp = _scale(x.reshape(1, -1), spec)
+    return delta[0], zp[0]
 
 
 def init_state(x: torch.Tensor, spec: AffineQuantizerSpec) -> dict:

@@ -97,6 +97,11 @@ class QuantCtx:
             return x
         return fake_quant(x, st["delta"], st["zero_point"], spec)
 
+    def get_state(self, name: str, slot: str) -> Optional[dict]:
+        """A quantizer's state, for kernels that take the calibrated delta
+        directly (the flash-attention softmax and V quantizers)."""
+        return self._get(name, slot)
+
     def act_matmul(self, name: str, slot_a: str, slot_b: str, eq: str,
                    a: torch.Tensor, b: torch.Tensor,
                    spec_a: AffineQuantizerSpec,

@@ -118,3 +118,12 @@ def load_pytree(path, like: dict) -> dict:
                 node = node.setdefault(k, {})
             node[keys[-1]] = arr
     return out
+
+
+def save_pytree(path, tree: dict) -> None:
+    """Nested dict of arrays -> the JAX CLI's `save_pytree` npz (leaves
+    '0', '1', ... in jax.tree_util flatten order)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **{str(i): np.asarray(leaf) for i, (_, leaf)
+                      in enumerate(_flatten_sorted(tree))})

@@ -17,8 +17,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the Triton kernel runs only on "
-                    "the card")
+        pytest.skip("needs a CUDA device: the Triton and CUDA kernels run "
+                    "only on the card")
     return torch.device("cuda")
 
 
@@ -124,3 +124,80 @@ def test_tiny_sim_w8a8_split_runs_on_card(card):
     eps = make_quantized_step(m, q, engine="sim")(x, t)
     assert fused_group_norm.launches - before == 21
     assert eps.shape == (2, 16, 16, 3) and bool(torch.isfinite(eps).all())
+
+
+# -- B2 / B3: the CUDA flash-attention kernels -----------------------------
+
+def _attn_inputs(card, shape, dtype, seed=0):
+    b, t, s, h, d = shape
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((b, t, h, d), generator=g, device=card).to(dtype)
+    k = torch.randn((b, s, h, d), generator=g, device=card).to(dtype)
+    v = torch.randn((b, s, h, d), generator=g, device=card).to(dtype)
+    return q, k, v
+
+
+def _sm_pairs(card, kind):
+    from qdiffusion_torch.quant.affine import AffineQuantizerSpec
+
+    if kind is None:
+        return None, None
+    spec = AffineQuantizerSpec(n_bits=8, always_zero=kind == "always_zero",
+                               symmetric=kind == "symmetric")
+    sm = {"delta": torch.tensor(1 / 251.3, device=card),
+          "zero_point": torch.tensor(0.0, device=card)}
+    v = {"delta": torch.tensor(6.1 / 255, device=card),
+         "zero_point": torch.tensor(127.0, device=card)}
+    return (sm, spec), (v, AffineQuantizerSpec(n_bits=8))
+
+
+@pytest.mark.parametrize("kind", [None, "always_zero", "symmetric"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["B2", "B3"])
+@pytest.mark.parametrize("shape", [(2, 24, 200, 2, 40), (1, 70, 131, 3, 80),
+                                   (1, 40, 300, 1, 512)])
+def test_flash_kernels_match_plain(card, kernel, shape, dtype, kind):
+    """Each CUDA kernel against its own plain version on the same CUDA
+    inputs (ragged T and S, D padded 40 -> 48). f32: 5e-5 plus at most
+    1e-3 of the elements one softmax bucket apart (delta * max|v|; sum
+    order moves p across a rounding boundary; scores summed over up to 512
+    products give 5e-5 absolute / 1e-4 relative, observed 2.2e-5 at D =
+    512); bf16: 2e-2 (one bf16 rounding of p and of the output)."""
+    from qdiffusion_torch.ops.flash_attention import flash_attention, \
+        flash_attention_plain
+    from qdiffusion_torch.ops.flash_streaming import \
+        streaming_flash_attention, streaming_flash_attention_plain
+
+    fn, plain = (flash_attention, flash_attention_plain) if kernel == "B2" \
+        else (streaming_flash_attention, streaming_flash_attention_plain)
+    q, k, v = _attn_inputs(card, shape, dtype)
+    sm_q, v_q = _sm_pairs(card, kind)
+    before = fn.launches
+    got = fn(q, k, v, scale=0.3, sm_q=sm_q, v_q=v_q)
+    assert fn.launches == before + 1
+    want = plain(q, k, v, scale=0.3, sm_q=sm_q, v_q=v_q)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+    elif kind is None:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=5e-5)
+    else:
+        flip = (1 / 251.3) * float(v.abs().max())
+        assert float(diff.max()) <= 5e-5 + flip
+        assert float((diff > 5e-5).float().mean()) <= 1e-3
+
+
+def test_flash_wrappers_refuse_what_the_kernel_does_not_take(card):
+    from qdiffusion_torch.ops.flash_attention import flash_attention
+
+    q, k, v = _attn_inputs(card, (1, 8, 8, 2, 16), torch.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(q.half(), k.half(), v.half(), scale=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), scale=1.0)
+    with pytest.raises(ValueError, match="k is"):
+        flash_attention(q, k.cpu(), v, scale=1.0)

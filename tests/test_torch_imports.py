@@ -42,7 +42,20 @@ def _forbidden(module: str) -> bool:
 def test_sources_found():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert "qdiffusion_torch/ops/groupnorm.py" in names
-    assert "chip_smoke.py" in names and len(names) > 15
+    for mod in ("ops/attention.py", "ops/flash_attention.py",
+                "ops/flash_streaming.py", "ops/_cuda.py",
+                "models/unet_ldm.py", "models/clip_text.py", "models/vae.py",
+                "samplers/ldm.py"):
+        assert f"qdiffusion_torch/{mod}" in names, mod
+    assert "chip_smoke.py" in names and len(names) > 25
+
+
+def test_kernel_sources_are_in_the_package():
+    """The CUDA sources the loader builds ship inside the package."""
+    from qdiffusion_torch.ops import _cuda
+
+    for src in _cuda.SIGNATURES:
+        assert (_cuda.CSRC / src).is_file(), src
 
 
 @pytest.mark.parametrize("path", SOURCES,
