@@ -4,9 +4,9 @@
     python3 chip_smoke.py [--out DIR] [--profile]
 
 Builds the port's CUDA kernels (nvcc, one process per source, started
-together) into qdiffusion_torch/_build/, then drives two main paths
-through the entry points a user calls and holds every kernel of them
-against its plain PyTorch version:
+together) into qdiffusion_torch/_build/, then drives the main paths of
+every ported slice through the entry points a user calls and holds
+every kernel of them against its plain PyTorch version:
 
   CIFAR-10 (DDIMUNetConfig(), full width):
   1. kernels  - GroupNorm kernel B1 at every GroupNorm shape of the UNet
@@ -42,8 +42,29 @@ against its plain PyTorch version:
   9. sd_sim   - W8A8: activation qstate from 2 inputs, one bf16 UNet call
                 at batch 8 and a 5-step PLMS through the CLI (f32), with
                 B2 launched with its softmax quantizer.
-  (--profile adds torch.profiler breakdowns of a CIFAR fold step and of
-  an SD fold UNet call.)
+  The int8 and stream deployment engines (kernels B4, B5, B6):
+  10. int_kernels - B4 (int8_matmul) at every distinct (M, K, N) of one
+                CIFAR W4A8 int8 step at batch 64, B6 (int4_stream_matmul)
+                and B5 (int8_stream_matmul) at every distinct shape of one
+                SD stream UNet call at batch 2 (W4 and W8), all collected
+                by spies: error against the plain version (B4: the int32
+                product exactly, the output bit for bit; B5/B6: 1e-3 of the
+                largest output), kernel / plain / library time in a CUDA
+                graph over inputs that outgrow the L2, and the bound;
+  11. int8_cli - `cli sample --task cifar10 --weight-bit 4 --quant-act
+                --split --engine int8 --n 128 --batch 64` (DDIM-100): the
+                B4 launches against 100 x the spy's per-step count per
+                batch; then one int8 step at batch 2: the card's bf16 and
+                f32 carriers against the CPU's f32 carrier (every int8
+                activation within one bucket beyond its input's drift)
+                and the card's f32 carrier against its sim step;
+  12. sd_stream_cli - `cli sample --task sd_v1 --weight-bit 4 --engine
+                stream --stream-convs --n 2 --batch 1` (PLMS-50, CFG 7.5;
+                B6 launches against 51 x the spy's per-call count per
+                batch) and the same at --weight-bit 8 --timesteps 5 (B5
+                on the streamed convs), with the streamed conv sites.
+  (--profile adds torch.profiler breakdowns of a CIFAR fold step, an SD
+  fold UNet call, a CIFAR int8 step and an SD stream W4 UNet call.)
 
 Each phase prints one JSON line. Then come the `kernels` line, the raw
 nvidia-smi line and, only if every check passed, the last line
@@ -69,6 +90,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores
 # exponentials: 16 per clock per SM (the special-function unit), 132 SMs
 # at the 1.98 GHz maximum SM clock of the H100 SXM
 EXP_PER_S = 16 * 132 * 1.98e9
@@ -82,6 +104,20 @@ SD_N = 2 * SD_BATCH
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),  # sum order only
        torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}  # one bf16 rounding
 REL_L2_CARD_VS_CPU = 5e-2  # bf16 carrier against the f32 reference
+INT8_N = 2 * BATCH  # int8 CLI: two batches, the second one timed
+# int8 step at batch 2, full width. f32 noise outside the exact integer
+# products flips quantization buckets, and the flips cascade through the
+# 113 quantized sites: the same int8 engine with an f32 carrier differs
+# by 3.2e-2 relative L2 between the card and the CPU (measured by this
+# script on an NVIDIA H100 80GB HBM3 at 700 W). So the card's bf16 carrier against the CPU's f32 carrier, the
+# card's f32 carrier against the CPU's, and the card's f32 carrier
+# against its sim step are held to 6e-2 (the JAX package's bf16-carrier
+# bound, tests/test_int8.py:139-144), and every int8 activation of the
+# card's f32 step to one bucket beyond its input's drift from the CPU's.
+REL_L2_INT8 = 6e-2
+STREAM_N, STREAM_BATCH = 2, 1  # SD stream CLI: batch-1 serving, CFG
+B4_REL = 1e-6  # B4 output against its plain version (the same f32 epilogue)
+STREAM_REL = 1e-3  # B5/B6: the same bf16 products, summed in another order
 
 
 def _emit(obj: dict):
@@ -137,12 +173,16 @@ def _graph_ms(fns: list, min_calls: int = 20) -> float:
 
 def _seeded_model(task, device="cuda", **flags):
     """The full-width CIFAR UNet with the params the CLI builds without
-    --ckpt (init_params seed 0) and the policy of `flags`."""
+    --ckpt (init_params seed 0) and the policy of `flags` (split=True:
+    the split-shortcut config of --split)."""
+    import dataclasses
+
     from qdiffusion_torch.config import QuantFlags
     from qdiffusion_torch.models.unet_ddim import DDIMUNet
 
-    model = DDIMUNet(task.unet_ddim, QuantFlags(**flags).policy_ddim(),
-                     device=device)
+    cfg = dataclasses.replace(task.unet_ddim, split_shortcut=True) \
+        if flags.get("split") else task.unet_ddim
+    model = DDIMUNet(cfg, QuantFlags(**flags).policy_ddim(), device=device)
     model.load_state_dict(model.init_params(0))
     return model
 
@@ -415,19 +455,36 @@ def profile_breakdown(run, reps: int, trace: Path, what: str) -> dict:
 
     # device-side events only: an operator's own entry repeats the time of
     # the kernels it launched
+    cuda = torch.autograd.DeviceType.CUDA
     kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in kern) / 1e3
+            if e.device_type == cuda and dev_us(e) > 0]
+    # busy time as the union of the kernels' intervals: kernels that run
+    # concurrently (cuDNN's f32 convolutions do) count once
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == cuda
+                   and e.time_range.end > e.time_range.start)
+    busy_us, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            busy_us += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy_us += 0.0 if cur_e is None else cur_e - cur_s
+    kernel_sum_ms = sum(dev_us(e) for e in kern) / 1e3
+    busy_ms = busy_us / 1e3 if spans else kernel_sum_ms
     kinds: dict = {}
     for e in kern:
         name = e.key.lower()
         kind = ("group_norm" if "group_norm" in name else
                 "flash_attention" if "flash_kernel" in name else
+                "int matmul (B4-B6)" if any(s in name for s in (
+                    "b4_kernel", "stream_kernel")) else
                 "conv" if any(s in name for s in ("conv", "fprop",
                                                    "implicit")) else
+                # cuBLAS's Hopper GEMMs are named nvjet_*
                 "gemm" if any(s in name for s in ("gemm", "matmul",
-                                                   "cutlass")) else
+                                                   "cutlass", "nvjet")) else
                 "elementwise and other")
         ms, n = kinds.get(kind, (0.0, 0))
         kinds[kind] = (ms + dev_us(e) / (1e3 * reps), n + e.count / reps)
@@ -435,6 +492,7 @@ def profile_breakdown(run, reps: int, trace: Path, what: str) -> dict:
     return {"what": what, "calls": reps, "call_ms": call_ms,
             "profiled_call_ms": wall_ms / reps,
             "device_busy_ms_per_call": busy_ms / reps,
+            "kernel_time_sum_ms_per_call": kernel_sum_ms / reps,
             "idle_share": (1.0 - busy_ms / reps / call_ms) if busy_ms
             else None,
             "by_kind": {k: {"ms_per_call": ms, "kernels_per_call": n}
@@ -886,6 +944,515 @@ def phase_sd_profile(task, work: Path, out: Path) -> dict:
     return row
 
 
+# -- the int8 and stream deployment engines (B4, B5, B6) ---------------------
+
+def b4_spy() -> Spy:
+    """Every B4 call of the int8 engine (ops/int8.py's dispatch): (M, K,
+    N) of the product."""
+    import qdiffusion_torch.ops.int8 as int8
+
+    return Spy([(int8, "int8_dense_pallas")],
+               lambda a, kw: (a[0].shape[0], a[0].shape[1], a[1].shape[1]))
+
+
+def stream_spy() -> Spy:
+    """Every B5 / B6 call of the stream engine, as (M, K, N), and every
+    streamed conv, as the shape of its input."""
+    import qdiffusion_torch.ops.qlayers as ql
+
+    def record(a, kw):
+        if isinstance(a[0], dict):  # _stream_conv2d(packed, x)
+            return tuple(a[1].shape)
+        return (a[0].numel() // a[0].shape[-1], a[0].shape[-1],
+                a[1].shape[1])
+
+    return Spy([(ql, "int8_dense_stream"), (ql, "int4_dense_stream"),
+                (ql, "_stream_conv2d")], record)
+
+
+def _calls(seen, name) -> list:
+    return [r for n, r in seen if n == name]
+
+
+def int8_setup(task, out: Path, check: Checks) -> dict:
+    """The CLI's W4A8 split-shortcut CIFAR model (seeded), its activation
+    qstate from 8 inputs (saved for the CLI), and one int8 step at batch
+    64 under the B4 spy."""
+    from qdiffusion_torch.calib.engine import init_act_qstate, \
+        init_weight_qstate
+    from qdiffusion_torch.deploy import make_quantized_step, pack_model
+    from qdiffusion_torch.utils.checkpoints import save_qstate
+
+    model = _seeded_model(task, weight_bit=4, quant_act=True, split=True)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    xs = torch.randn((8, 32, 32, 3), generator=gen, device="cuda")
+    ts = torch.randint(0, 1000, (8,), generator=gen, device="cuda").float()
+    qstate = init_act_qstate(model, init_weight_qstate(model), xs, ts)
+    save_qstate(out / "w4a8_qstate.npz", qstate)
+    packed = pack_model(model, qstate)
+    segments = sum(len(p.segments) for p in packed.values())
+    check(len(packed) == 113 and segments == 125,
+          f"int8: {len(packed)} packed sites, {segments} segments "
+          "(expected 113, 125)")
+    step = make_quantized_step(model, qstate, engine="int8")
+    x = torch.randn((BATCH, 32, 32, 3), generator=gen, device="cuda")
+    t = torch.full((BATCH,), 500.0, device="cuda")
+    with b4_spy() as spy:
+        eps = step(x, t)
+    torch.cuda.synchronize()
+    check(tuple(eps.shape) == (BATCH, 32, 32, 3)
+          and bool(torch.isfinite(eps).all()), "int8 step output")
+    shapes = _calls(spy.seen, "int8_dense_pallas")
+    check(len(shapes) == segments, f"int8 step: {len(shapes)} B4 calls, "
+                                   f"expected {segments}")
+    row = {"phase": "int8_spy", "packed_sites": len(packed),
+           "b4_per_step": len(shapes), "distinct_shapes": len(set(shapes)),
+           "step_ms": _time_ms(lambda: step(x, t), reps=3)}
+    _emit(row)
+    return {"model": model, "qstate": qstate, "step": step, "x": x, "t": t,
+            "shapes": shapes, "row": row}
+
+
+def sd_stream_spy(task, work: Path, wbits: int, check: Checks,
+                  profile_to: Path = None) -> dict:
+    """One SD stream UNet call at batch 2 with context (f32, the CLI's
+    stream_convs=True) under spies of B5/B6, the streamed convs, B1 and
+    B2/B3. W8 writes its 'mse' weight qstate first. profile_to: also
+    profile three such calls."""
+    from qdiffusion_torch.calib.engine import init_weight_qstate
+    from qdiffusion_torch.cli import load_fp_params
+    from qdiffusion_torch.deploy import make_quantized_step
+    from qdiffusion_torch.utils.checkpoints import load_qstate, save_qstate
+
+    model = _sd_unet(task, weight_bit=wbits)
+    model.load_state_dict(load_fp_params(work / "unet.npz", model))
+    qpath = work / f"w{wbits}_qstate.npz"
+    if not qpath.exists():
+        save_qstate(qpath, init_weight_qstate(model))
+    step = make_quantized_step(model, load_qstate(qpath, "cuda"),
+                               engine="stream", stream_convs=True)
+    x, t, c = _sd_inputs(task, 2, seed=8)
+    with stream_spy() as spy, gn_spy() as gn, attn_spy() as att:
+        eps = step(x, t, c)
+    torch.cuda.synchronize()
+    check(tuple(eps.shape) == tuple(x.shape)
+          and bool(torch.isfinite(eps).all()), f"sd stream W{wbits} call")
+    kernel = "int4_dense_stream" if wbits == 4 else "int8_dense_stream"
+    convs = _calls(spy.seen, "_stream_conv2d")
+    conv_sites = sum(1 for n, cfg in model.layer_cfgs.items()
+                     if model.get_submodule(n).weight.ndim == 4)
+    res = {"wbits": wbits, "shapes": _calls(spy.seen, kernel),
+           "other_kernel_calls": len(spy.seen) - len(convs)
+           - len(_calls(spy.seen, kernel)),
+           "streamed_convs": len(convs), "conv_sites": conv_sites,
+           "streamed_conv_inputs": sorted(set(convs)),
+           "unet_call": {"group_norm": len(gn.seen),
+                         "flash_attention": len(_calls(att.seen,
+                                                       "flash_attention")),
+                         "flash_streaming": len(_calls(
+                             att.seen, "streaming_flash_attention"))}}
+    check(res["shapes"] and res["other_kernel_calls"] == 0,
+          f"sd stream W{wbits}: {len(res['shapes'])} {kernel} calls, "
+          f"{res['other_kernel_calls']} of the other kernel")
+    check(0 < len(convs) < conv_sites, f"sd stream W{wbits}: {len(convs)} "
+          f"of {conv_sites} conv sites stream")
+    prof = None
+    if profile_to is not None:
+        def run():
+            step(x, t, c)
+        prof = profile_breakdown(
+            run, 3, profile_to / "sd_stream_w4_call_trace.json",
+            f"SD v1 stream W{wbits} f32 UNet call, batch 2 (CFG of batch 1)")
+        _emit({"phase": "sd_stream_profile", **prof})
+    _emit({"phase": "sd_stream_spy", "per_call": len(res["shapes"]),
+           "distinct_shapes": len(set(res["shapes"])),
+           **{k: v for k, v in res.items() if k != "shapes"}})
+    del model, step, eps
+    torch.cuda.empty_cache()
+    return {**res, "profile": prof}
+
+
+def _counts(shapes) -> dict:
+    out: dict = {}
+    for s in shapes:
+        out[s] = out.get(s, 0) + 1
+    return out
+
+
+def _rotations(make, nbytes: int, cap: int = 32) -> list:
+    """Input sets that together outgrow the L2 where `cap` allows."""
+    return [make() for _ in range(min(cap, max(1, -(-ROTATE_BYTES
+                                                   // nbytes))))]
+
+
+def _bound(nbytes: float, ops: float, rate: float) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / rate * 1e3
+    return {"bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _b4_case(M, K, N, gen, check) -> dict:
+    from qdiffusion_torch.ops.int8_matmul import int8_dense_pallas, \
+        int8_matmul_dequant, int8_matmul_plain
+
+    def ints(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    x, w = ints(M, K), ints(K, N)
+    a = 1e-4 + 1e-3 * torch.rand(N, generator=gen, device="cuda")
+    bc = 1e-3 * torch.randn(N, generator=gen, device="cuda")
+    c = torch.randn(N, generator=gen, device="cuda")
+    got = int8_dense_pallas(x, w, a, bc, c)
+    want = int8_matmul_plain(x, w, a, bc, c)
+    one, zero = torch.ones(N, device="cuda"), torch.zeros(N, device="cuda")
+    acc = int8_matmul_dequant(x, w, one, zero, zero)
+    exact = torch.matmul(x.double(), w.double())
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / max(float(want.abs().max()), 1e-30)
+    acc_exact = float(exact.abs().max()) < 2**24 and bool(
+        torch.equal(acc.double(), exact))
+    ok = acc_exact and rel <= B4_REL
+    check(ok, f"int8_matmul {(M, K, N)}: int32 product exact {acc_exact}, "
+              f"output rel err {rel} over {B4_REL}")
+    del got, want, acc, exact
+    # (x, w) sets cycled so that neither operand stays in the L2
+    sets = _rotations(lambda: (x.clone(), w.clone()), M * K + K * N)
+    # torch._int_mm wants M > 16 and K, N multiples of 8: zero-pad
+    Mp, Kp, Np = max(M, 17), -(-K // 8) * 8, -(-N // 8) * 8
+    pad = torch.nn.functional.pad
+    lib_sets = [(pad(xx, (0, Kp - K, 0, Mp - M)), pad(ww, (0, Np - N, 0,
+                                                          Kp - K)))
+                for xx, ww in sets]
+    ap, bp, cp = (pad(v, (0, Np - N)) for v in (a, bc, c))
+
+    def library(xp, wp):
+        acc = torch._int_mm(xp, wp)
+        s = xp.float().sum(dim=-1, keepdim=True)
+        return acc.float() * ap + s * bp + cp
+
+    try:
+        lib_ms = _graph_ms([lambda s=s: library(*s) for s in lib_sets])
+        lib_note = "torch._int_mm + torch epilogue"
+    except RuntimeError as e:  # a yardstick only: record why it is missing
+        lib_ms, lib_note = None, f"torch._int_mm refused: {str(e)[:120]}"
+    del lib_sets
+    return {
+        "max_abs_err": err, "rel_err": rel, "int32_exact": acc_exact,
+        "tolerance": f"int32 product exact, output {B4_REL} relative",
+        "ok": ok,
+        "ms": _graph_ms([lambda s=s: int8_dense_pallas(*s, a, bc, c)
+                         for s in sets]),
+        "plain_ms": _graph_ms([lambda s=s: int8_matmul_plain(*s, a, bc, c)
+                               for s in sets], min_calls=5),
+        "library_ms": lib_ms, "library": lib_note,
+        **_bound(M * K + K * N + 4 * M * N, 2 * M * N * K, INT8_OPS)}
+
+
+def _stream_case(kernel, M, K, N, gen, check) -> dict:
+    from qdiffusion_torch.ops.int4_matmul import int4_dense_stream, \
+        int4_stream_plain, unpack_int4_weight
+    from qdiffusion_torch.ops.int8_matmul import int8_dense_stream, \
+        int8_stream_plain
+
+    int4 = kernel == "int4_stream_matmul"
+    x = torch.randn((M, K), generator=gen, device="cuda")  # f32, as the
+    # stream engine's f32 activations reach it
+    if int4:
+        w = torch.randint(0, 256, (K // 2, N), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+    else:
+        w = torch.randint(-128, 128, (K, N), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    scale = 1e-4 + 1e-3 * torch.rand(N, generator=gen, device="cuda")
+    shift = 1e-2 * torch.randn(N, generator=gen, device="cuda")
+    bias = torch.randn(N, generator=gen, device="cuda")
+    fn, plain = (int4_dense_stream, int4_stream_plain) if int4 else (
+        int8_dense_stream, int8_stream_plain)
+    got = fn(x, w, scale, shift, bias=bias)
+    want = plain(x, w, scale, shift, bias)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / max(float(want.abs().max()), 1e-30)
+    ok = rel <= STREAM_REL
+    check(ok, f"{kernel} {(M, K, N)}: rel err {rel} over {STREAM_REL}")
+    del got, want
+    # (x, w) sets cycled so that neither operand stays in the L2; the
+    # library call multiplies bf16 x by the fold engine's bf16 weight
+    sets = _rotations(lambda: (x.clone(), w.clone()), 4 * M * K + w.numel())
+
+    def folded(ww):
+        wf = unpack_int4_weight(ww).float() if int4 else ww.float()
+        return (wf * scale + shift).to(torch.bfloat16)
+
+    lib_sets = [(xx.to(torch.bfloat16), folded(ww)) for xx, ww in sets]
+    row = {
+        "max_abs_err": err, "rel_err": rel,
+        "tolerance": f"{STREAM_REL} of the largest output", "ok": ok,
+        "ms": _graph_ms([lambda s=s: fn(*s, scale, shift, bias=bias)
+                         for s in sets]),
+        "plain_ms": _graph_ms([lambda s=s: plain(*s, scale, shift, bias)
+                               for s in sets], min_calls=5),
+        "library_ms": _graph_ms([lambda s=s: torch.matmul(*s)
+                                 for s in lib_sets]),
+        "library": "torch.matmul(bf16 x, bf16 folded weight)",
+        # x arrives in f32 on this path: 4 bytes per element read
+        **_bound(4 * M * K + w.numel() + 4 * M * N, 2 * M * N * K,
+                 BF16_FLOPS)}
+    del sets, lib_sets
+    return row
+
+
+def phase_int_kernels(b4: list, b5: list, b6: list, check: Checks) -> list:
+    """B4 at every distinct (M, K, N) of one CIFAR int8 step, B5 / B6 at
+    every distinct one of one SD stream UNet call (call-order lists, so a
+    shape's multiplicity is its count per step / call)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for kernel, shapes, where in (
+            ("int8_matmul", b4, f"cifar10 W4A8 int8 step, batch {BATCH}"),
+            ("int8_stream_matmul", b5, "sd_v1 stream W8 UNet call, batch 2"),
+            ("int4_stream_matmul", b6, "sd_v1 stream W4 UNet call, batch 2")):
+        for (M, K, N), per_call in _counts(shapes).items():
+            case = _b4_case(M, K, N, gen, check) if kernel == "int8_matmul" \
+                else _stream_case(kernel, M, K, N, gen, check)
+            row = {"phase": "int_kernel", "kernel": kernel, "where": where,
+                   "shape": [M, K, N], "per_call": per_call, **case}
+            _emit(row)
+            rows.append(row)
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_int8_cli(task, out: Path, setup: dict, check: Checks) -> dict:
+    from qdiffusion_torch import cli
+    from qdiffusion_torch.ops.groupnorm import fused_group_norm
+    from qdiffusion_torch.ops.int8_matmul import int8_matmul_dequant
+
+    per_step = len(setup["shapes"])
+    batches = INT8_N // BATCH
+    fused_group_norm.launches = int8_matmul_dequant.launches = 0
+    res = cli.main(["sample", "--task", "cifar10",
+                    "--qstate", str(out / "w4a8_qstate.npz"),
+                    "--weight-bit", "4", "--quant-act", "--split",
+                    "--engine", "int8", "--n", str(INT8_N),
+                    "--batch", str(BATCH), "--npz-out", str(out / "int8.npz"),
+                    "--device", "cuda"])
+    launches = {"int8_matmul": int8_matmul_dequant.launches,
+                "group_norm": fused_group_norm.launches}
+    want = {"int8_matmul": batches * STEPS * per_step,
+            "group_norm": batches * STEPS * 51}
+    with np.load(res["path"]) as f:
+        imgs = f["arr_0"]
+    check(imgs.shape == (INT8_N, 32, 32, 3) and imgs.dtype == np.uint8,
+          f"int8 npz {imgs.shape} {imgs.dtype}")
+    check(res["nonfinite"] == 0, f"int8: {res['nonfinite']} non-finite")
+    check(res["steps"] == STEPS and res["engine"] == "int8",
+          f"int8 ran {res['steps']} steps on {res['engine']}")
+    check(launches == want, f"int8 launches {launches}, expected {want}")
+    secs = res["batch_seconds"]
+    row = {"phase": "int8_cli", "n": INT8_N, "batch": BATCH, "steps": STEPS,
+           "batch_seconds": secs, "img_per_s": BATCH / secs[-1],
+           "ms_per_step": secs[-1] / STEPS * 1e3,
+           "first_batch_img_per_s": BATCH / secs[0], "launches": launches,
+           "expected_launches": want, "image_mean": float(imgs.mean()),
+           "image_std": float(imgs.std())}
+    _emit(row)
+    return row
+
+
+class QuantRecorder:
+    """Records every activation quantization of the int8 engine, as (f32
+    input, int8 output, delta) on the CPU, for the length of a `with`."""
+
+    def __enter__(self):
+        import qdiffusion_torch.ops.int8 as int8
+
+        self.mod, self.real, self.rec = int8, int8.quantize_act, []
+
+        def spy(x, seg):
+            q = self.real(x, seg)
+            self.rec.append((x.float().cpu(), q.cpu(), float(seg.a_delta)))
+            return q
+
+        int8.quantize_act = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.quantize_act = self.real
+
+
+def phase_int8_card_vs_cpu(task, out: Path, setup: dict,
+                           check: Checks) -> dict:
+    """One int8 step at batch 2: the card's bf16 and f32 carriers against
+    the CPU's f32 carrier, each int8 activation of the f32 steps held to
+    one bucket beyond its input's drift, and the card's f32 carrier
+    against the card's sim step."""
+    from qdiffusion_torch.deploy import make_quantized_step
+    from qdiffusion_torch.utils.checkpoints import load_qstate
+
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(
+        np.float32))
+    t = torch.tensor([10.0, 500.0])
+    cpu_model = _seeded_model(task, "cpu", weight_bit=4, quant_act=True,
+                              split=True)
+    with QuantRecorder() as rec_cpu:
+        ref = make_quantized_step(cpu_model, load_qstate(
+            out / "w4a8_qstate.npz", "cpu"), engine="int8",
+            carrier_dtype=torch.float32)(x, t)
+    del cpu_model
+    model, q = setup["model"], setup["qstate"]
+    xc, tc = x.cuda(), t.cuda()
+    eps = {"bf16": make_quantized_step(model, q, engine="int8")(xc, tc),
+           "sim": make_quantized_step(model, q, engine="sim")(xc, tc)}
+    with QuantRecorder() as rec_card:
+        eps["f32"] = make_quantized_step(
+            model, q, engine="int8", carrier_dtype=torch.float32)(xc, tc)
+    eps = {k: v.float().cpu() for k, v in eps.items()}
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
+
+    sites_ok = len(rec_card.rec) == len(rec_cpu.rec) > 0
+    flips = total = 0
+    for (xg, qg, delta), (xr, qr, _) in zip(rec_card.rec, rec_cpu.rec):
+        dq = (qg.int() - qr.int()).abs()
+        sites_ok &= xg.shape == xr.shape and bool(
+            (dq <= (xg - xr).abs() / delta + 1 + 1e-5).all())
+        flips += int((dq > 0).sum())
+        total += dq.numel()
+    first_exact = sites_ok and bool(torch.equal(rec_card.rec[0][1],
+                                                rec_cpu.rec[0][1]))
+    row = {"phase": "int8_card_vs_cpu", "batch": 2,
+           "rel_l2_card_bf16_vs_cpu_f32": rel(eps["bf16"], ref),
+           "rel_l2_card_f32_vs_cpu_f32": rel(eps["f32"], ref),
+           "rel_l2_card_f32_vs_card_sim": rel(eps["f32"], eps["sim"]),
+           "tolerance": REL_L2_INT8,
+           "quantized_sites": len(rec_card.rec),
+           "sites_within_one_bucket": sites_ok,
+           "first_site_exact": first_exact,
+           "int8_values_apart": flips, "int8_values": total}
+    check(all(bool(torch.isfinite(e).all()) for e in eps.values()),
+          "int8 batch-2 steps not finite")
+    check(sites_ok and first_exact, f"int8 card vs CPU: {len(rec_card.rec)}"
+          f" vs {len(rec_cpu.rec)} quantized sites, within one bucket "
+          f"{sites_ok}, first site exact {first_exact}")
+    for key in ("rel_l2_card_bf16_vs_cpu_f32", "rel_l2_card_f32_vs_cpu_f32",
+                "rel_l2_card_f32_vs_card_sim"):
+        check(row[key] <= REL_L2_INT8, f"int8 {key}: {row[key]} over "
+                                       f"{REL_L2_INT8}")
+    _emit(row)
+    return row
+
+
+def phase_sd_stream_cli(task, work: Path, spy: dict, st: dict,
+                        check: Checks) -> dict:
+    """`cli sample --engine stream --stream-convs` at W4 (PLMS-50) and W8
+    (PLMS-5), batch 1 with CFG; launch counts against the spies."""
+    from qdiffusion_torch import cli
+    from qdiffusion_torch.ops.flash_attention import flash_attention
+    from qdiffusion_torch.ops.flash_streaming import \
+        streaming_flash_attention
+    from qdiffusion_torch.ops.groupnorm import fused_group_norm
+    from qdiffusion_torch.ops.int4_matmul import int4_stream_matmul
+    from qdiffusion_torch.ops.int8_matmul import int8_stream_matmul
+
+    counters = {"group_norm": fused_group_norm,
+                "flash_attention": flash_attention,
+                "flash_streaming": streaming_flash_attention,
+                "int4_stream_matmul": int4_stream_matmul,
+                "int8_stream_matmul": int8_stream_matmul}
+    batches = STREAM_N // STREAM_BATCH
+    out = {}
+    for wbits, steps in ((4, SD_STEPS), (8, 5)):
+        s = st[wbits]
+        calls = steps + 1  # PLMS evaluates the first step twice
+        unet = {**s["unet_call"],
+                "int4_stream_matmul": len(s["shapes"]) if wbits == 4 else 0,
+                "int8_stream_matmul": len(s["shapes"]) if wbits == 8 else 0}
+        dec = {**spy["decode"], "int4_stream_matmul": 0,
+               "int8_stream_matmul": 0}
+        want = {k: batches * (calls * unet[k] + dec[k]) for k in counters}
+        for f in counters.values():
+            f.launches = 0
+        res = cli.main(["sample", "--task", "sd_v1",
+                        "--ckpt", str(work / "unet.npz"),
+                        "--vae-ckpt", str(work / "vae.npz"),
+                        "--clip-ckpt", str(work / "clip.npz"),
+                        "--token-ids", str(work / "token_ids.npz"),
+                        "--qstate", str(work / f"w{wbits}_qstate.npz"),
+                        "--weight-bit", str(wbits), "--engine", "stream",
+                        "--stream-convs", "--timesteps", str(steps),
+                        "--n", str(STREAM_N), "--batch", str(STREAM_BATCH),
+                        "--npz-out", str(work / f"sd_stream_w{wbits}.npz"),
+                        "--device", "cuda"])
+        launches = {k: f.launches for k, f in counters.items()}
+        with np.load(res["path"]) as f:
+            imgs = f["arr_0"]
+        tag = f"sd stream W{wbits}"
+        check(imgs.shape == (STREAM_N, 512, 512, 3)
+              and imgs.dtype == np.uint8, f"{tag} npz {imgs.shape}")
+        check(res["nonfinite"] == 0, f"{tag}: {res['nonfinite']} non-finite")
+        check(res["sampler"] == "plms" and res["guidance_scale"] == 7.5
+              and res["model_calls"] == [calls] * batches,
+              f"{tag}: {res['sampler']} {res['model_calls']} calls at "
+              f"scale {res['guidance_scale']}")
+        check(launches == want, f"{tag} launches {launches}, expected {want}")
+        kernel = "int4_stream_matmul" if wbits == 4 else "int8_stream_matmul"
+        check(launches[kernel] > 0, f"{tag}: {kernel} not launched")
+        secs, dec_s = res["batch_seconds"], res["decode_seconds"]
+        row = {"phase": "sd_stream_cli", "weight_bit": wbits, "n": STREAM_N,
+               "batch": STREAM_BATCH, "steps": steps,
+               "batch_seconds": secs, "decode_seconds": dec_s,
+               "img_per_s": STREAM_BATCH / secs[-1],
+               "ms_per_unet_call": (secs[-1] - dec_s[-1]) / calls * 1e3,
+               "unet_calls": res["model_calls"], "launches": launches,
+               "expected_launches": want,
+               "streamed_convs": s["streamed_convs"],
+               "conv_sites": s["conv_sites"],
+               "image_mean": float(imgs.mean()),
+               "image_std": float(imgs.std())}
+        _emit(row)
+        out[wbits] = row
+    return out
+
+
+def phase_int8_profile(setup: dict, out: Path) -> dict:
+    """Three CIFAR W4A8 int8 steps at batch 64 (bf16 carrier)."""
+    step, x, t = setup["step"], setup["x"], setup["t"]
+    row = {"phase": "int8_profile", **profile_breakdown(
+        lambda: step(x, t), 3, out / "int8_step_trace.json",
+        f"CIFAR-10 W4A8 int8 step, batch {BATCH}")}
+    _emit(row)
+    return row
+
+
+def _int_row(rows, name, replaces, launches, per):
+    """A kernels-line row: per-call sums over the shapes of `name`."""
+    sel = [r for r in rows if r["kernel"] == name]
+    tot = lambda key: sum(r[key] * r["per_call"] for r in sel)
+    by_bytes = sum(r["bound_ms"] * r["per_call"] for r in sel
+                   if r["bound_by"] == "bytes")
+    return {
+        "name": name, "route": "cuda",
+        "source": "qdiffusion_torch/csrc/int_matmul.cu",
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in sel),
+        "max_rel_err": max(r["rel_err"] for r in sel),
+        "ms": tot("ms"), "plain_ms": tot("plain_ms"),
+        "bound_ms": tot("bound_ms"),
+        "bound_by": "bytes" if by_bytes >= tot("bound_ms") / 2
+        else "operations",
+        "library_ms": None if any(r["library_ms"] is None for r in sel)
+        else tot("library_ms"),
+        "per": per, "shapes": len(sel)}
+
+
 def _gn_row(rows, where, per, launches):
     bytes_ms = per_call_sum(rows, "bytes_ms")
     ops_ms = per_call_sum(rows, "ops_ms")
@@ -928,7 +1495,8 @@ def main(argv=None) -> int:
                         "the end")
     p.add_argument("--profile", action="store_true",
                    help="add torch.profiler breakdowns of a CIFAR fold "
-                        "step and an SD fold UNet call")
+                        "step, an SD fold UNet call, a CIFAR int8 step and "
+                        "an SD stream W4 UNet call")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1006,6 +1574,27 @@ def main(argv=None) -> int:
     for name, n in sd_launches.items():
         check(n > 0, f"sd fold: {name} not launched")
 
+    # the int8 and stream deployment engines, this slice's paths
+    i8 = int8_setup(task, out, check)
+    st = {4: sd_stream_spy(sd, work, 4, check,
+                           profile_to=out if args.profile else None),
+          8: sd_stream_spy(sd, work, 8, check)}
+    ints = phase_int_kernels(i8["shapes"], st[8]["shapes"], st[4]["shapes"],
+                             check)
+    int8_cli = phase_int8_cli(task, out, i8, check)
+    int8_cpu = phase_int8_card_vs_cpu(task, out, i8, check)
+    int8_prof = phase_int8_profile(i8, out) if args.profile else None
+    i8_row, b4_per_step = i8["row"], len(i8["shapes"])
+    del i8
+    torch.cuda.empty_cache()
+    sd_stream = phase_sd_stream_cli(sd, work, spy, st, check)
+    for name, n in int8_cli["launches"].items():
+        check(n > 0, f"int8 cli: {name} not launched")
+    for wbits, row in sd_stream.items():
+        for name in ("group_norm", "flash_attention", "flash_streaming"):
+            check(row["launches"][name] > 0,
+                  f"sd stream W{wbits}: {name} not launched")
+
     gn_sd = gn_unet + gn_dec
     kernels = [
         {**_gn_row(gn_sd, "sd",
@@ -1014,8 +1603,12 @@ def main(argv=None) -> int:
                    f"{len(spy['decode_gn_shapes'])} of one VAE decode at "
                    f"batch {SD_BATCH}; device time in a CUDA graph",
                    sd_launches["group_norm"]),
-         "launches_by_path": {"cifar10_fold": fold["group_norm_launches"],
-                              "sd_v1_fold": sd_launches["group_norm"]},
+         "launches_by_path": {
+             "cifar10_fold": fold["group_norm_launches"],
+             "sd_v1_fold": sd_launches["group_norm"],
+             "cifar10_int8": int8_cli["launches"]["group_norm"],
+             "sd_v1_stream_w4": sd_stream[4]["launches"]["group_norm"],
+             "sd_v1_stream_w8": sd_stream[8]["launches"]["group_norm"]},
          "cifar10_step_ms": per_call_sum(rows, "ms"),
          "cifar10_step_bound_ms": max(per_call_sum(rows, "bytes_ms"),
                                       per_call_sum(rows, "ops_ms"))},
@@ -1032,7 +1625,29 @@ def main(argv=None) -> int:
                   sd_launches["flash_streaming"],
                   f"the VAE mid attention of one bf16 decode at batch "
                   f"{SD_BATCH} (4,4096,1,512); CUDA graph"),
+        _int_row(ints, "int8_matmul",
+                 "qdiffusion_tpu/ops/pallas/int8_matmul.py:88",
+                 int8_cli["launches"]["int8_matmul"],
+                 f"the {b4_per_step} B4 calls of one CIFAR W4A8 int8 step "
+                 f"at batch {BATCH}; CUDA graph over (x, w) sets"),
+        _int_row(ints, "int8_stream_matmul",
+                 "qdiffusion_tpu/ops/pallas/int8_matmul.py:216",
+                 sd_stream[8]["launches"]["int8_stream_matmul"],
+                 f"the {len(st[8]['shapes'])} B5 calls (streamed convs) of "
+                 "one SD stream W8 f32 UNet call at batch 2; CUDA graph"),
+        _int_row(ints, "int4_stream_matmul",
+                 "qdiffusion_tpu/ops/pallas/int4_matmul.py:129",
+                 sd_stream[4]["launches"]["int4_stream_matmul"],
+                 f"the {len(st[4]['shapes'])} B6 calls (linears and "
+                 "streamed convs) of one SD stream W4 f32 UNet call at "
+                 "batch 2; CUDA graph"),
     ]
+    for row, key in ((kernels[1], "flash_attention"),
+                     (kernels[2], "flash_streaming")):
+        row["launches_by_path"] = {
+            "sd_v1_fold": sd_launches[key],
+            "sd_v1_stream_w4": sd_stream[4]["launches"][key],
+            "sd_v1_stream_w8": sd_stream[8]["launches"][key]}
     report = {"device": device, "nvidia_smi": smi, "build": built,
               "kernels": kernels, "kernel_shapes": rows, "gn_sd": gn_sd,
               "attn_kernels": attn, "fold": fold, "card_vs_cpu": card_cpu,
@@ -1040,7 +1655,12 @@ def main(argv=None) -> int:
                   k: v for k, v in spy.items() if not k.endswith("shapes")},
               "sd_files": files, "sd_fold": sd_fold,
               "sd_card_vs_cpu": sd_cpu, "sd_sim": sd_sim,
-              "sd_profile": sd_prof, "failed": check.failed,
+              "sd_profile": sd_prof, "int8_spy": i8_row,
+              "sd_stream_spy": {w: {k: v for k, v in r.items()
+                                    if k != "shapes"} for w, r in st.items()},
+              "int_kernels": ints, "int8_cli": int8_cli,
+              "int8_card_vs_cpu": int8_cpu, "int8_profile": int8_prof,
+              "sd_stream_cli": sd_stream, "failed": check.failed,
               "launch_totals": {
                   "flash_attention": flash_attention.launches,
                   "flash_streaming": streaming_flash_attention.launches},

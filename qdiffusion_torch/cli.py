@@ -10,6 +10,13 @@ qdiffusion_tpu/cli.py for the pixel, ldm and sd families):
       --qstate w4.npz --weight-bit 4 --engine fold --dtype bfloat16 \\
       --n 8 --batch 4 --npz-out samples/
 
+Engines (--engine, with --qstate; cli.py:334-379 of the JAX package):
+sim (fake-quant), fold (weight-only, folded weights), int8 (with
+--quant-act: integer kernels, bf16 carriers; without it, the weight-only
+sim), stream (weight-only with integer weights resident on the card;
+--stream-convs also streams the convs the byte cost model picks). int8
+and stream ignore --dtype, as in the JAX package (cli.py:405-406).
+
 Runs on the card unless --device cpu. With no --ckpt the UNet is
 initialised from seed 0, as the JAX CLI does (cli.py:349-350). Checkpoints
 are the JAX package's npz files: the UNet a `save_pytree` npz, the VAE and
@@ -164,7 +171,7 @@ def _sync(device):
 
 def cmd_sample(args) -> dict:
     from qdiffusion_torch.config import QuantFlags
-    from qdiffusion_torch.deploy import fold_weights
+    from qdiffusion_torch.deploy import fold_weights, make_quantized_step
     from qdiffusion_torch.quant.context import QuantMode
     from qdiffusion_torch.samplers.ddim import inverse_data_transform
     from qdiffusion_torch.utils.checkpoints import load_qstate
@@ -188,7 +195,7 @@ def cmd_sample(args) -> dict:
         pipe.vae.load_state_dict(load_nested_params(args.vae_ckpt,
                                                     "--vae-ckpt"))
 
-    qstate, mode = None, None
+    qstate, mode, model_fn = None, None, None
     if args.qstate:
         qstate = load_qstate(args.qstate, device)
         if args.engine == "fold":
@@ -197,13 +204,20 @@ def cmd_sample(args) -> dict:
                                  "--quant-act or use --engine sim")
             model.load_state_dict(fold_weights(model, qstate))
             qstate = None
+        elif (args.engine == "int8" and args.quant_act) \
+                or args.engine == "stream":
+            model_fn = make_quantized_step(model, qstate, engine=args.engine,
+                                           stream_convs=args.stream_convs)
+            qstate = None
         else:
             mode = QuantMode(w=True, a=args.quant_act)
     cond, uncond = (None, None) if pixel else build_conditioning(
         args, task, pipe, device)
     # --dtype bfloat16: bf16 params and carrier for the UNet and the VAE;
-    # the sampler math and the CLIP context stay f32
-    eval_dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
+    # the sampler math and the CLIP context stay f32. The int8 and stream
+    # engines keep their own carriers.
+    eval_dtype = torch.bfloat16 \
+        if args.dtype == "bfloat16" and model_fn is None else None
     if eval_dtype is not None:
         model.to(eval_dtype)
         if not pixel:
@@ -215,7 +229,7 @@ def cmd_sample(args) -> dict:
     sampler = args.sampler or task.sampler.sample_type
     calls = [0]
     if not pixel:
-        base_fn = pipe.model_fn(qstate, mode)
+        base_fn = model_fn or pipe.model_fn(qstate, mode)
 
         def model_fn(x, t, context=None):
             calls[0] += 1
@@ -236,7 +250,7 @@ def cmd_sample(args) -> dict:
                             skip_type=task.sampler.skip_type,
                             eta=task.sampler.eta, sample_type=sampler,
                             qstate=qstate, mode=mode, x_init=x0,
-                            eval_dtype=eval_dtype)
+                            eval_dtype=eval_dtype, model_fn=model_fn)
             _sync(device)
             batch_seconds.append(time.perf_counter() - t0)
             nonfinite += int((~torch.isfinite(x)).sum())
@@ -273,7 +287,8 @@ def cmd_sample(args) -> dict:
           f"{len(batch_seconds)} batches) in {total:.3f} s on {device}; "
           f"wrote {all_img.shape} -> {out}")
     res = {"path": str(out), "n": int(all_img.shape[0]), "steps": steps,
-           "batch_seconds": batch_seconds, "nonfinite": nonfinite}
+           "batch_seconds": batch_seconds, "nonfinite": nonfinite,
+           "engine": args.engine if args.qstate else None}
     if not pixel:
         res.update(decode_seconds=decode_seconds, model_calls=model_calls,
                    sampler=sampler, guidance_scale=scale)
@@ -304,10 +319,16 @@ def main(argv=None):
     sp.add_argument("--quant-act", action="store_true")
     sp.add_argument("--act-bit", type=int, default=8)
     sp.add_argument("--split", action="store_true")
-    sp.add_argument("--engine", default="sim", choices=["sim", "fold"])
+    sp.add_argument("--engine", default="sim",
+                    choices=["sim", "fold", "int8", "stream"])
+    sp.add_argument("--stream-convs", action="store_true",
+                    help="stream engine: also keep conv weights integer on "
+                         "the card, streamed where a per-site byte cost "
+                         "model says so (batch-1 serving)")
     sp.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"],
-                    help="model dtype; the sampler math stays float32")
+                    help="model dtype for the sim and fold engines; the "
+                         "sampler math stays float32")
     sp.add_argument("--n", type=int, default=64)
     sp.add_argument("--batch", type=int, default=64)
     sp.add_argument("--timesteps", type=int)

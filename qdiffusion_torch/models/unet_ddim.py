@@ -6,7 +6,10 @@ qdiffusion_tpu/models/unet_ddim.py; reference ddim/models/diffusion.py:
 state_dict names (`down.0.block.0.conv1`, `temb.dense.0`, ...), so a site
 name is also a module path. Convs and linears are parameter holders: the
 forward runs them through `ops.qlayers` with a QuantCtx, so one module
-serves the FP, sim and folded forwards.
+serves the FP, sim, folded, int8 and stream forwards. Every conv passes
+its stride and padding on: the int8 and stream engines gather patches
+themselves (the Downsample conv is stride 2 with no padding, after an
+explicit asymmetric pad).
 
 The forward takes and returns NHWC like the JAX model; inside,
 activations are NCHW in channels_last memory format.

@@ -8,7 +8,7 @@ state_dict paths (time_embed.0, input_blocks.{i}.{j}..., middle_block.{k},
 output_blocks.{i}.{j}, out.{k}), so a quant site name is a module path.
 The modules are parameter holders (models/base.py::Params); the forward
 runs them through ops.qlayers with a QuantCtx, so one module serves the
-FP, sim and folded forwards. The forward takes and returns NHWC; inside,
+FP, sim, folded, int8 and stream forwards. The forward takes and returns NHWC; inside,
 activations are NCHW in channels_last memory format, and attention runs
 on (B, T, C) tokens, the same bytes.
 
@@ -312,10 +312,11 @@ class LDMUNet(QuantModelBase):
     # -- forward pieces ----------------------------------------------------
 
     def _use_blockwise(self, ctx: QuantCtx, key_len: int) -> bool:
-        # calibration passes (collect) always materialize, as in the JAX
+        # calibration passes (collect) always materialize, and the int8
+        # engine keeps its integer attention products, as in the JAX
         # package (unet_ldm.py:159-163)
         return (self.flash_threshold > 0 and key_len >= self.flash_threshold
-                and ctx.collect is None)
+                and ctx.collect is None and ctx.engine != "int8")
 
     def _conv(self, ctx, name, x, *, stride=1, padding=1):
         return qconv2d(ctx, name, self._mods[name], x,

@@ -9,7 +9,7 @@ compute in the activation dtype, GroupNorm statistics in f32.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -111,3 +111,40 @@ def pad_asymmetric_downsample(x: torch.Tensor) -> torch.Tensor:
     """(0,1,0,1) spatial zero-pad before the stride-2 3x3 downsample conv
     (reference ddim/models/diffusion.py:67-71)."""
     return F.pad(x, (0, 1, 0, 1))
+
+
+def pad_amounts(padding: Union[str, int], k: Tuple[int, int],
+                stride: Tuple[int, int], shape) -> List[Tuple[int, int]]:
+    """(before, after) per spatial dim of an int, 'SAME', 'VALID' or
+    explicit padding, as lax.conv reads its padding argument (the JAX
+    package's ops/int8.py::_pad_amounts)."""
+    if isinstance(padding, int):
+        return [(padding, padding), (padding, padding)]
+    if padding == "VALID":
+        return [(0, 0), (0, 0)]
+    if padding == "SAME":
+        out = []
+        for dim, kk, s in zip(shape, k, stride):
+            o = -(-dim // s)
+            total = max(0, (o - 1) * s + kk - dim)
+            out.append((total // 2, total - total // 2))
+        return out
+    return [tuple(p) for p in padding]
+
+
+def patches(x: torch.Tensor, kshape: Tuple[int, int],
+            stride: Tuple[int, int], pads, value=0) -> torch.Tensor:
+    """(B, C, H, W) -> (B, Ho, Wo, C*kh*kw) patches, features in (c, kh,
+    kw) order (lax.conv_general_dilated_patches' order, which the packed
+    weights follow). The input is padded with `value`."""
+    kh, kw = kshape
+    (pt, pb), (pl, pr) = pads
+    if (kh, kw) == (1, 1) and tuple(stride) == (1, 1) \
+            and not (pt or pb or pl or pr):
+        return x.permute(0, 2, 3, 1)  # 1x1 stride 1: the input itself
+    if pt or pb or pl or pr:
+        x = F.pad(x, (pl, pr, pt, pb), value=value)
+    b, c = x.shape[:2]
+    u = x.unfold(2, kh, stride[0]).unfold(3, kw, stride[1])
+    ho, wo = u.shape[2], u.shape[3]
+    return u.permute(0, 2, 3, 1, 4, 5).reshape(b, ho, wo, c * kh * kw)

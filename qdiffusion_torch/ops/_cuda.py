@@ -38,6 +38,11 @@ SIGNATURES = {
         "qdt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                 _I, _I, _I, _I, _I, _I, _P],
     },
+    "int_matmul.cu": {
+        "qdt_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "qdt_stream_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _P],
+    },
 }
 
 _libs: dict = {}

@@ -37,10 +37,13 @@ class PixelDiffusionPipeline:
                qstate: Optional[dict] = None,
                mode: Optional[QuantMode] = None,
                x_init: Optional[torch.Tensor] = None,
-               eval_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+               eval_dtype: Optional[torch.dtype] = None,
+               model_fn: Optional[Callable] = None) -> torch.Tensor:
         """n samples, NHWC in [-1, 1] model space. The initial noise is
-        x_init, or drawn from `generator` on the model's device. With a
-        qstate, every step runs the sim engine under `mode`."""
+        x_init, or drawn from `generator` on the model's device. Each step
+        calls model_fn (x, t) -> eps when given (a deployed engine,
+        deploy.make_quantized_step), else the model: with a qstate under
+        the sim engine and `mode`."""
         if sample_type != "generalized":
             raise NotImplementedError(sample_type)
         device = next(self.model.parameters()).device
@@ -49,6 +52,8 @@ class PixelDiffusionPipeline:
             device=device)
 
         def fn(x, t):
+            if model_fn is not None:
+                return model_fn(x, t)
             ctx = QuantCtx(qstate, mode=mode) if qstate is not None else None
             return self.model(x, t, ctx)
 

@@ -7,9 +7,13 @@ half), 'a' / 'a0' (input activations), 'q' 'k' 'v' 'sm' (attention
 operands). The qstate is {site: {slot: {leaf: tensor}}} in torch layout
 (see qdiffusion_torch/convert.py for the JAX layout).
 
-Engines: 'sim' (fake-quant simulation) and 'fold' (weight-only; the
-folded weights live in the module, so the ctx is only needed for the FP
-forward). The int8/stream engines are not ported yet.
+Engines: 'sim' (fake-quant simulation), 'fold' (weight-only; the folded
+weights live in the module, so the ctx is only needed for the FP
+forward), 'int8' (integer kernels for every packed layer, ops/int8.py;
+`packed` maps a site to its PackedWeight, and sites without one fall back
+to simulation) and 'stream' (the folded model with integer weights
+resident in device memory for the packed sites, ops/qlayers.py; `packed`
+maps a site to its stream pack, deploy.py::stream_pack_model).
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ class QuantMode:
 INIT = "init"  # first-batch scale init for act quantizers
 EMA = "ema"  # running-stat momentum update
 
-ENGINES = ("sim", "fold")
+ENGINES = ("sim", "fold", "int8", "stream")
 
 
 class QuantCtx:
@@ -48,7 +52,8 @@ class QuantCtx:
 
     def __init__(self, qstate: Optional[dict] = None,
                  mode: QuantMode = QuantMode(),
-                 collect: Optional[str] = None, engine: str = "sim"):
+                 collect: Optional[str] = None, engine: str = "sim",
+                 packed: Optional[dict] = None, conv_stream: str = "auto"):
         if engine not in ENGINES:
             raise NotImplementedError(
                 f"engine {engine!r} is not ported (have: {ENGINES})")
@@ -56,6 +61,12 @@ class QuantCtx:
         self.mode = mode
         self.collect = collect
         self.engine = engine
+        self.packed: dict = packed or {}
+        # conv_stream (stream engine): 'auto' streams a packed conv only
+        # where the byte cost model says so
+        # (ops/qlayers.py::_stream_conv_profitable); 'all' streams every
+        # packed conv
+        self.conv_stream = conv_stream
         self.collected: Dict[str, dict] = {}
 
     def _get(self, name: str, slot: str) -> Optional[dict]:
@@ -107,9 +118,20 @@ class QuantCtx:
                    spec_a: AffineQuantizerSpec,
                    spec_b: AffineQuantizerSpec) -> torch.Tensor:
         """Quantized activation x activation einsum (attention QK^T and
-        weights x V): both operands fake-quantized, then multiplied with
-        an f32 result, as the JAX site's preferred_element_type=f32 einsum
-        (a bf16 operand is exact in f32)."""
+        weights x V) with an f32 result. On the int8 engine with both
+        states calibrated and grids of at most 8 bits: the integer einsum
+        (ops/int8.py::int8_einsum). Otherwise both operands are
+        fake-quantized and multiplied, as the JAX site's
+        preferred_element_type=f32 einsum (a bf16 operand is exact in
+        f32): the same semantics."""
+        st_a, st_b = self._get(name, slot_a), self._get(name, slot_b)
+        if (self.engine == "int8" and self.mode.a and self.collect is None
+                and st_a is not None and st_b is not None
+                and spec_a.n_bits <= 8 and spec_b.n_bits <= 8):
+            from qdiffusion_torch.ops.int8 import int8_einsum
+
+            return int8_einsum(eq, a, b, st_a, st_b, spec_a, spec_b,
+                               out_dtype=torch.float32)
         aq = self.act_quant(name, slot_a, a, spec_a)
         bq = self.act_quant(name, slot_b, b, spec_b)
         return torch.einsum(eq, aq.float(), bq.float())

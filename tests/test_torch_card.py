@@ -201,3 +201,177 @@ def test_flash_wrappers_refuse_what_the_kernel_does_not_take(card):
                         v.transpose(1, 2), scale=1.0)
     with pytest.raises(ValueError, match="k is"):
         flash_attention(q, k.cpu(), v, scale=1.0)
+
+
+# -- B4 / B5 / B6: the CUDA integer matmul kernels -------------------------
+
+def _int_operands(card, M, K, N, seed, w_dtype=torch.int8, k_rows=None):
+    g = torch.Generator(device=card).manual_seed(seed)
+    k_rows = K if k_rows is None else k_rows
+    if w_dtype == torch.uint8:
+        w = torch.randint(0, 256, (k_rows, N), generator=g, device=card,
+                          dtype=torch.uint8)
+    else:
+        w = torch.randint(-128, 128, (k_rows, N), generator=g, device=card,
+                          dtype=torch.int8)
+    consts = [(0.01 + 0.1 * torch.rand(N, generator=g, device=card)),
+              torch.randn(N, generator=g, device=card),
+              torch.randn(N, generator=g, device=card)]
+    return g, w, consts
+
+
+@pytest.mark.parametrize("shape", [(1, 27, 3), (70, 46, 29),
+                                   (129, 200, 260), (300, 1152, 128)])
+def test_b4_matches_plain_bit_for_bit(card, shape):
+    """B4 against its plain version on the same CUDA inputs: the int32
+    product exactly (identity epilogue, |acc| < 2^24 so its f32 value is
+    exact) and the output bit for bit (the same unfused f32 epilogue)."""
+    from qdiffusion_torch.ops.int8_matmul import int8_dense_pallas, \
+        int8_matmul_dequant, int8_matmul_plain
+
+    M, K, N = shape
+    g, w, (a, bc, c) = _int_operands(card, M, K, N, seed=M)
+    x = torch.randint(-128, 128, (M, K), generator=g, device=card,
+                      dtype=torch.int8)
+    before = int8_matmul_dequant.launches
+    got = int8_dense_pallas(x, w, a, bc, c)
+    assert int8_matmul_dequant.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert torch.equal(got, int8_matmul_plain(x, w, a, bc, c))
+    one, zero = torch.ones(N, device=card), torch.zeros(N, device=card)
+    acc = int8_matmul_dequant(x, w, one, zero, zero)
+    want = torch.matmul(x.double(), w.double())
+    assert float(want.abs().max()) < 2**24
+    assert torch.equal(acc.double(), want)
+
+
+@pytest.mark.parametrize("kernel", ["B5", "B6"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 46, 3), (33, 45, 17), (70, 118, 29),
+                                   (154, 768, 320), (200, 2880, 130)])
+def test_stream_kernels_match_plain(card, kernel, x_dtype, out_dtype, shape):
+    """B5 / B6 against their plain versions: the same bf16 x and weight
+    products summed in another order, so 1e-3 relative to the largest
+    output (f32 out); a bf16 output adds one bf16 rounding (1e-2). B6's
+    K is even (its pack folds K in half): an odd K is taken one up."""
+    from qdiffusion_torch.ops.int4_matmul import int4_dense_stream, \
+        int4_stream_matmul, int4_stream_plain
+    from qdiffusion_torch.ops.int8_matmul import int8_dense_stream, \
+        int8_stream_matmul, int8_stream_plain
+
+    M, K, N = shape
+    int4 = kernel == "B6"
+    K += K % 2 if int4 else 0
+    g, w, (scale, shift, c) = _int_operands(
+        card, M, K, N, seed=K, w_dtype=torch.uint8 if int4 else torch.int8,
+        k_rows=K // 2 if int4 else K)
+    x = torch.randn((M, K), generator=g, device=card).to(x_dtype)
+    fn, count, plain = (int4_dense_stream, int4_stream_matmul,
+                        int4_stream_plain) if int4 else (
+        int8_dense_stream, int8_stream_matmul, int8_stream_plain)
+    before = count.launches
+    got = fn(x, w, scale, shift, bias=c, out_dtype=out_dtype)
+    assert count.launches == before + 1
+    want = plain(x, w, scale, shift, c, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    err = float((got.float() - want.float()).abs().max())
+    ref = float(want.float().abs().max())
+    assert err <= (1e-3 if out_dtype == torch.float32 else 1e-2) * ref, \
+        (err, ref)
+
+
+def test_int_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from qdiffusion_torch.ops.int4_matmul import int4_stream_matmul
+    from qdiffusion_torch.ops.int8_matmul import int8_matmul_dequant, \
+        int8_stream_matmul
+
+    g, w, (a, b, c) = _int_operands(card, 32, 64, 48, seed=0)
+    x8 = torch.randint(-128, 128, (32, 64), generator=g, device=card,
+                       dtype=torch.int8)
+    xf = torch.randn((32, 64), generator=g, device=card)
+    with pytest.raises(ValueError, match="dtype"):
+        int8_matmul_dequant(x8.short(), w, a, c, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_matmul_dequant(x8.t().contiguous().t(), w, a, c, b)
+    with pytest.raises(ValueError, match="w is"):
+        int8_matmul_dequant(x8, w.cpu(), a, c, b)
+    with pytest.raises(ValueError, match="dtype"):
+        int8_stream_matmul(xf.half(), w, a, b, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_stream_matmul(xf[:, ::2], w[:32], a, b, c)
+    with pytest.raises(ValueError, match="w is"):
+        int4_stream_matmul(xf, w[:32], a, b, c)  # int8, not a uint8 pack
+    with pytest.raises(ValueError, match="even"):
+        int4_stream_matmul(xf[:, :63].contiguous(), w[:31].view(torch.uint8),
+                           a, b, c)
+    with pytest.raises(ValueError, match="scale"):
+        int8_stream_matmul(xf, w, a.double(), b, c)
+
+
+def _rel_l2(got, want):
+    return float(torch.linalg.vector_norm(got.float().cpu() - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def test_tiny_int8_step_card_matches_cpu(card):
+    """int8 engine, W8A8 with split shortcut, f32 carrier: the card (B4,
+    B1) against the CPU (plain versions). Integer products are exact on
+    both; f32 noise elsewhere flips quantization buckets that then
+    cascade, as between the port and the JAX package (relative L2 2e-2
+    there): 5e-2. Every packed segment launches B4 once."""
+    from qdiffusion_torch.calib.engine import init_act_qstate, \
+        init_weight_qstate
+    from qdiffusion_torch.deploy import make_quantized_step, pack_model
+    from qdiffusion_torch.ops.int8_matmul import int8_matmul_dequant
+
+    cpu_m, card_m = _tiny_pair(card, weight_bit=8, quant_act=True,
+                               split=True)
+    x, t = _inputs_nhwc()
+    q = init_act_qstate(cpu_m, init_weight_qstate(cpu_m), x, t)
+    want = make_quantized_step(cpu_m, q, engine="int8",
+                               carrier_dtype=torch.float32)(x, t)
+    qc = {s: {k: {n: v.to(card) for n, v in st.items()}
+              for k, st in sl.items()} for s, sl in q.items()}
+    per_step = sum(len(p.segments) for p in pack_model(card_m, qc).values())
+    before = int8_matmul_dequant.launches
+    got = make_quantized_step(card_m, qc, engine="int8",
+                              carrier_dtype=torch.float32)(x.to(card),
+                                                           t.to(card))
+    assert int8_matmul_dequant.launches - before == per_step
+    assert bool(torch.isfinite(got).all())
+    assert _rel_l2(got, want) <= 5e-2
+
+
+@pytest.mark.parametrize("weight_bit", [8, 4])
+def test_tiny_stream_step_card_matches_cpu(card, weight_bit):
+    """stream engine with every conv streamed ("all"): B5 (W8 convs) or
+    B6 (W4 convs and linears) on the card against the plain versions on
+    the CPU. Each conv rounds its input to bf16, so f32 noise upstream
+    flips bf16 roundings that compound: 1e-2 (port vs JAX on the CPU:
+    3.4e-3)."""
+    from qdiffusion_torch.calib.engine import init_weight_qstate
+    from qdiffusion_torch.deploy import make_quantized_step, \
+        stream_pack_model
+    from qdiffusion_torch.ops.int4_matmul import int4_stream_matmul
+    from qdiffusion_torch.ops.int8_matmul import int8_stream_matmul
+
+    cpu_m, card_m = _tiny_pair(card, weight_bit=weight_bit, split=True)
+    x, t = _inputs_nhwc()
+    q = init_weight_qstate(cpu_m)
+    want = make_quantized_step(cpu_m, q, engine="stream",
+                               stream_convs="all")(x, t)
+    qc = {s: {k: {n: v.to(card) for n, v in st.items()}
+              for k, st in sl.items()} for s, sl in q.items()}
+    packs = stream_pack_model(card_m, qc, dense_only=False)
+    count = int4_stream_matmul if weight_bit == 4 else int8_stream_matmul
+    # W8 linears dequantize to x's dtype and run a plain matmul
+    per_step = sum(len(p["segs"]) for p in packs.values()
+                   if weight_bit == 4 or "kshape" in p)
+    before = count.launches
+    got = make_quantized_step(card_m, qc, engine="stream",
+                              stream_convs="all")(x.to(card), t.to(card))
+    assert count.launches - before == per_step
+    assert bool(torch.isfinite(got).all())
+    assert _rel_l2(got, want) <= 1e-2
