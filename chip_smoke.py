@@ -25,9 +25,13 @@ every kernel of them against its plain PyTorch version:
   5. attn_kernels - B2 (flash_attention) at (8, 4096, 8, 40) and
                 (8, 1024, 8, 80), B3 (streaming_flash_attention) at
                 (4, 4096, 1, 512), bf16 and f32, with and without the
-                softmax/V quantizers: error against the plain version,
-                kernel / plain / F.scaled_dot_product_attention time, and
-                the bound (bytes, MMA flops, exponentials);
+                softmax/V quantizers, and B2 at P's (2, 4096, 8, 40) in
+                bf16: error against the plain version, kernel / plain /
+                F.scaled_dot_product_attention time, the bound (bytes, MMA
+                flops, exponentials) and the CUDA design that ran, from
+                the profiler's kernel names ("mma": flash_mma_kernel, which
+                every bf16 row at D <= 128 must show; "first":
+                flash_kernel, for f32 and D = 512);
   6. gn_sd    - B1 at every GroupNorm shape of one SD UNet call (batch 8,
                 CFG) and one VAE decode (batch 4), bf16;
   7. sd_fold_cli - writes the UNet / VAE / CLIP npz files, a token-ids
@@ -63,10 +67,20 @@ every kernel of them against its plain PyTorch version:
                 B6 launches against 51 x the spy's per-call count per
                 batch) and the same at --weight-bit 8 --timesteps 5 (B5
                 on the streamed convs), with the streamed conv sites.
+  P, the flash-epilogue probe (kernel flash_epilogue on B2's bf16 kernel):
+  13. flash_epilogue - `python -m qdiffusion_torch.scripts.
+                bench_flash_epilogue` at (2, 4096, 8, 40) bf16 (its
+                launches counted from 0): each of P's nine modes timed in a
+                CUDA graph over inputs that outgrow the L2; then each mode
+                against its plain version (fp modes 2e-2 + 2e-2 relative;
+                the scaled modes 2e-2 of max|plain| plus one bucket on at
+                most 1e-3 of the elements), the plain time, SDPA's time for
+                the two fp modes, and the bound (one exponential per score).
   (--profile adds torch.profiler breakdowns of a CIFAR fold step, an SD
   fold UNet call, a CIFAR int8 step and an SD stream W4 UNet call.)
 
-Each phase prints one JSON line. Then come the `kernels` line, the raw
+Each phase prints one JSON line (13: one per mode, after the entry
+point's own nine). Then come the `kernels` line, the raw
 nvidia-smi line and, only if every check passed, the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero without it.
 A full report goes to DIR/report.json (default runs/chip_smoke).
@@ -78,8 +92,6 @@ from __future__ import annotations
 import argparse
 import json
 import shutil
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -87,15 +99,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
-INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores
-# exponentials: 16 per clock per SM (the special-function unit), 132 SMs
-# at the 1.98 GHz maximum SM clock of the H100 SXM
-EXP_PER_S = 16 * 132 * 1.98e9
+from qdiffusion_torch.utils.timing import BF16_FLOPS, F32_FLOPS, INT8_OPS, \
+    attention_bound, bound, nvidia_smi, rotations
+from qdiffusion_torch.utils.timing import events_ms as _events_ms
+from qdiffusion_torch.utils.timing import graph_ms as _graph_ms
+
 GN_FLOPS_PER_ELEM = 8  # sum, square-add, then subtract, scale, affine
-ROTATE_BYTES = 128 << 20  # inputs cycled per timing: over twice the L2
 BATCH = 64
 STEPS = 100
 SD_BATCH = 4  # images per batch (the UNet sees 8 under CFG)
@@ -118,27 +127,37 @@ REL_L2_INT8 = 6e-2
 STREAM_N, STREAM_BATCH = 2, 1  # SD stream CLI: batch-1 serving, CFG
 B4_REL = 1e-6  # B4 output against its plain version (the same f32 epilogue)
 STREAM_REL = 1e-3  # B5/B6: the same bf16 products, summed in another order
+P_SHAPE = (2, 4096, 8, 40)  # P's (B, T, H, D), bench_flash_epilogue.py:112
 
 
 def _emit(obj: dict):
     print(json.dumps(obj), flush=True)
 
 
-def _events_ms(run, per: int, rounds: int = 5) -> float:
-    """Median over `rounds` of CUDA-event time of `run()` divided by
-    `per`, after a warm-up run."""
-    run()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        end.record()
-        end.synchronize()
-        out.append(start.elapsed_time(end) / per)
-    return statistics.median(out)
+def ptxas_report(build: Path) -> dict:
+    """Registers and spill bytes of each kernel, from the `-Xptxas -v`
+    reports that ops/_cuda.py writes beside the libraries: {source:
+    {kernel: [registers, spill stores, spill loads]}}, kernels by their
+    template arguments (flash_mma_kernel<D/16, epilogue>)."""
+    import re
+
+    out = {}
+    for f in sorted(build.glob("*.ptxas.txt")):
+        rows, name = {}, None
+        for line in f.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                k = re.search(r"(flash_mma_kernel)ILi(\d+)ELi(\d+)E", m.group(1))
+                name = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k
+                        else m.group(1)[-60:])
+                rows[name] = [None, None, None]
+            elif name and "spill stores" in line:
+                n = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+                rows[name][1:] = n[:2]
+            elif name and (m := re.search(r"Used (\d+) registers", line)):
+                rows[name][0] = int(m.group(1))
+        out[f.name.split(".")[0]] = rows
+    return out
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -148,27 +167,6 @@ def _time_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
     return _events_ms(run, reps)
-
-
-def _graph_ms(fns: list, min_calls: int = 20) -> float:
-    """Device time per call of the callables `fns` (each on its own
-    input buffer, so the inputs together outgrow the 50 MB L2 and every
-    call reads device memory), captured back to back in one CUDA graph so
-    that host launch cost drops out."""
-    calls = fns * max(1, -(-min_calls // len(fns)))
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for f in fns:
-            f()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for f in calls:
-            f()
-    ms = _events_ms(graph.replay, len(calls))
-    del graph
-    return ms
 
 
 def _seeded_model(task, device="cuda", **flags):
@@ -283,10 +281,7 @@ def phase_kernels(shapes: list, check: Checks, *,
             del y, ref
             nbytes = 2 * x.numel() * x.element_size() \
                 + 2 * c * scale.element_size()
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = GN_FLOPS_PER_ELEM * x.numel() / F32_FLOPS * 1e3
-            xs = [x] + [x.clone() for _ in range(
-                -(-ROTATE_BYTES // (x.numel() * x.element_size())) - 1)]
+            xs = rotations(x.clone, x.numel() * x.element_size())
             # F.group_norm takes (N, C, *): the same channel-last bytes
             lib = torch.nn.functional.group_norm
             row = {
@@ -304,9 +299,8 @@ def phase_kernels(shapes: list, check: Checks, *,
                     for a in xs]),
                 "eager_ms": _time_ms(lambda: fused_group_norm(x, scale,
                                                               bias)),
-                "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                **bound(nbytes, GN_FLOPS_PER_ELEM * x.numel() / F32_FLOPS
+                        * 1e3),
             }
             del xs, x
             _emit(row)
@@ -477,7 +471,8 @@ def profile_breakdown(run, reps: int, trace: Path, what: str) -> dict:
     for e in kern:
         name = e.key.lower()
         kind = ("group_norm" if "group_norm" in name else
-                "flash_attention" if "flash_kernel" in name else
+                "flash_attention" if any(s in name for s in (
+                    "flash_kernel", "flash_mma_kernel")) else
                 "int matmul (B4-B6)" if any(s in name for s in (
                     "b4_kernel", "stream_kernel")) else
                 "conv" if any(s in name for s in ("conv", "fprop",
@@ -618,31 +613,56 @@ def _attn_case(shape, dtype, quant, seed):
     return (q, k, v), sm_q, v_q
 
 
+def _run_design(run):
+    """`run()` under torch.profiler, and the flash design its kernel names
+    show: "mma" (flash_mma_kernel), "first" (flash_kernel) or None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # a kernel of PyTorch's own first: once the profiler has run
+        # earlier in the process, it (torch 2.11, CUDA 12.8) records no
+        # kernel of the window until PyTorch launches one
+        torch.zeros(1, device="cuda").add_(1)
+        out = run()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    design = ("mma" if any("flash_mma_kernel" in n for n in names) else
+              "first" if any("flash_kernel" in n for n in names) else None)
+    return out, design
+
+
 def phase_attn_kernels(check: Checks) -> list:
     """B2 and B3 at the SD and VAE shapes against their plain versions,
-    timed in CUDA graphs over inputs that outgrow the L2."""
+    timed in CUDA graphs over inputs that outgrow the L2; B2 also at P's
+    shape in bf16."""
     from qdiffusion_torch.ops.flash_attention import flash_attention, \
         flash_attention_plain
     from qdiffusion_torch.ops.flash_streaming import \
         streaming_flash_attention, streaming_flash_attention_plain
 
-    cases = [("flash_attention", (8, 4096, 8, 40), 5),
-             ("flash_attention", (8, 1024, 8, 80), 5),
-             ("flash_streaming", (4, 4096, 1, 512), 1)]
+    both = (torch.bfloat16, torch.float32)
+    # (kernel, shape, sites per SD call, dtypes, quantizers on);
+    # (2, 4096, 8, 40) is P's shape, on no SD fold site
+    cases = [("flash_attention", (8, 4096, 8, 40), 5, both, (False, True)),
+             ("flash_attention", (8, 1024, 8, 80), 5, both, (False, True)),
+             ("flash_streaming", (4, 4096, 1, 512), 1, both, (False, True)),
+             ("flash_attention", P_SHAPE, 0, (torch.bfloat16,), (False,))]
     fns = {"flash_attention": (flash_attention, flash_attention_plain),
            "flash_streaming": (streaming_flash_attention,
                                streaming_flash_attention_plain)}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
-    for seed, (name, shape, per_call) in enumerate(cases):
+    for seed, (name, shape, per_call, dtypes, quants) in enumerate(
+            cases):
         fn, plain = fns[name]
-        b, t, h, d = shape
+        d = shape[-1]
         scale = d ** -0.5
-        for dtype in (torch.bfloat16, torch.float32):
-            for quant in (False, True):
+        for dtype in dtypes:
+            for quant in quants:
                 (q, k, v), sm_q, v_q = _attn_case(shape, dtype, quant, seed)
                 kw = dict(scale=scale, sm_q=sm_q, v_q=v_q)
-                got = fn(q, k, v, **kw)
+                got, design = _run_design(lambda: fn(q, k, v, **kw))
                 want = plain(q, k, v, **kw)
                 torch.cuda.synchronize()
                 diff = (got.float() - want.float()).abs()
@@ -663,22 +683,22 @@ def phase_attn_kernels(check: Checks) -> list:
                         (diff > 5e-5).float().mean()) <= 1e-3
                 check(ok, f"{name} {shape} {dtype} quant={quant}: max abs "
                           f"err {err} over {tol}")
+                # the dispatch of qdt_flash_attention, as the profiler saw it
+                want_design = ("mma" if dtype == torch.bfloat16 and d <= 128
+                               else "first")
+                check(design == want_design,
+                      f"{name} {shape} {dtype} quant={quant}: ran the "
+                      f"{design} design, not {want_design}")
                 del got, want, diff
                 es = q.element_size()
-                nbytes = 4 * q.numel() * es  # q, k, v read, o written
-                flops = 4 * b * h * t * t * d  # QK^T and PV
-                exps = b * h * t * t
-                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-                ops_ms = max(flops / (BF16_FLOPS if es == 2 else F32_FLOPS),
-                             exps / EXP_PER_S) * 1e3
-                sets = [(q, k, v)] + [
-                    tuple(a.clone() for a in (q, k, v)) for _ in range(
-                        -(-ROTATE_BYTES // (3 * q.numel() * es)) - 1)]
+                sets = rotations(lambda: tuple(a.clone() for a in (q, k, v)),
+                                 3 * q.numel() * es)
                 row = {
                     "phase": "attn_kernel", "kernel": name,
                     "shape": list(shape),
                     "dtype": str(dtype).replace("torch.", ""),
                     "quant": quant, "per_call": per_call,
+                    "design": design,
                     "max_abs_err": err, "tolerance": tol, "ok": ok,
                     "ms": _graph_ms([lambda s=s: fn(*s, **kw)
                                      for s in sets], min_calls=10),
@@ -689,18 +709,92 @@ def phase_attn_kernels(check: Checks) -> list:
                         *(a.transpose(1, 2) for a in s), scale=scale)
                         for s in sets], min_calls=10)
                     if not quant and dtype == torch.bfloat16 else None,
-                    "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-                    "flops_ms": flops / (BF16_FLOPS if es == 2
-                                         else F32_FLOPS) * 1e3,
-                    "exp_ms": exps / EXP_PER_S * 1e3,
-                    "bound_ms": max(bytes_ms, ops_ms),
-                    "bound_by": "bytes" if bytes_ms >= ops_ms
-                    else "operations",
+                    **attention_bound(shape, es),
                 }
                 del sets, q, k, v
                 _emit(row)
                 rows.append(row)
     return rows
+
+
+def phase_flash_epilogue(check: Checks) -> list:
+    """P's path: its entry point (`python -m
+    qdiffusion_torch.scripts.bench_flash_epilogue`, here `main`) at P's
+    shape with the launch count set to 0 just before and read just after;
+    then each mode against its plain version on the card, the plain
+    version's time, and SDPA's for the two fp modes it computes."""
+    from qdiffusion_torch.ops.flash_epilogue import DELTA, MODES, \
+        flash_epilogue, flash_epilogue_plain
+    from qdiffusion_torch.scripts import bench_flash_epilogue as bench
+
+    flash_epilogue.launches = 0
+    timed = {r["mode"]: r for r in bench.main(
+        ["--shape", ",".join(map(str, P_SHAPE))])}
+    launches = flash_epilogue.launches
+    check(sorted(timed) == sorted(MODES) and launches >= len(MODES),
+          f"flash_epilogue: modes {sorted(timed)}, {launches} launches")
+    (q, k, v), _, _ = _attn_case(P_SHAPE, torch.bfloat16, False, 13)
+    scale = P_SHAPE[-1] ** -0.5
+    sets = rotations(lambda: tuple(a.clone() for a in (q, k, v)),
+                     3 * q.numel() * q.element_size())
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for mode in MODES:
+        got = flash_epilogue(q, k, v, scale=scale, mode=mode).float()
+        want = flash_epilogue_plain(q, k, v, scale=scale, mode=mode).float()
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        err = float(diff.max())
+        if mode in ("fp_postnorm", "fp_prenorm", "cast_rt"):
+            tol = "2e-2 abs + 2e-2 rel (one bf16 rounding of p, o)"
+            ok = bool(torch.allclose(got, want, rtol=2e-2, atol=2e-2))
+        else:
+            near = 2e-2 * float(want.abs().max())
+            bucket = (DELTA if mode.startswith("full") else 1.0) * float(
+                v.float().abs().max())
+            far = float((diff > near).float().mean())
+            tol = (f"{near:.4g} (2e-2 of max|plain|) plus one bucket "
+                   f"({bucket:.4g}) on at most 1e-3 of the elements")
+            ok = err <= near + bucket and far <= 1e-3
+        check(ok, f"flash_epilogue {mode}: max abs err {err} over {tol}")
+        del got, want, diff
+        t = timed[mode]
+        row = {"phase": "flash_epilogue", "mode": mode,
+               "shape": list(P_SHAPE), "max_abs_err": err, "tolerance": tol,
+               "ok": ok, "ms": t["ms"],
+               "ms_minus_fp_postnorm": t["ms_minus_fp_postnorm"],
+               "plain_ms": _graph_ms([lambda s=s: flash_epilogue_plain(
+                   *s, scale=scale, mode=mode) for s in sets], min_calls=2),
+               "library_ms": _graph_ms([lambda s=s: sdpa(
+                   *(a.transpose(1, 2) for a in s), scale=scale)
+                   for s in sets], min_calls=10)
+               if mode in ("fp_postnorm", "fp_prenorm") else None,
+               **{key: t[key] for key in ("bytes_ms", "flops_ms", "exp_ms",
+                                          "bound_ms", "bound_by")},
+               "launches_in_entry_point_run": launches}
+        _emit(row)
+        rows.append(row)
+    del sets, q, k, v
+    return rows
+
+
+def _p_row(rows, launches) -> dict:
+    """P's kernels-line row: sums over its nine modes, one call each."""
+    tot = lambda key: sum(r[key] for r in rows)
+    fp = [r["library_ms"] for r in rows if r["library_ms"] is not None]
+    return {
+        "name": "flash_epilogue", "route": "cuda",
+        "source": "qdiffusion_torch/csrc/flash_attention.cu",
+        "replaces": "scripts/bench_flash_epilogue.py:77",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": tot("ms"), "plain_ms": tot("plain_ms"),
+        "bound_ms": tot("bound_ms"), "bound_by": rows[0]["bound_by"],
+        # SDPA computes two of the nine functions only
+        "library_ms": None, "sdpa_ms_fp_modes": fp,
+        "ms_by_mode": {r["mode"]: r["ms"] for r in rows},
+        "per": f"the sum over P's nine modes at {P_SHAPE} bf16, one call "
+               "each; CUDA graph"}
 
 
 def phase_sd_files(task, work: Path, check: Checks) -> dict:
@@ -1079,20 +1173,6 @@ def _counts(shapes) -> dict:
     return out
 
 
-def _rotations(make, nbytes: int, cap: int = 32) -> list:
-    """Input sets that together outgrow the L2 where `cap` allows."""
-    return [make() for _ in range(min(cap, max(1, -(-ROTATE_BYTES
-                                                   // nbytes))))]
-
-
-def _bound(nbytes: float, ops: float, rate: float) -> dict:
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / rate * 1e3
-    return {"bytes_ms": bytes_ms, "ops_ms": ops_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-
-
 def _b4_case(M, K, N, gen, check) -> dict:
     from qdiffusion_torch.ops.int8_matmul import int8_dense_pallas, \
         int8_matmul_dequant, int8_matmul_plain
@@ -1120,7 +1200,7 @@ def _b4_case(M, K, N, gen, check) -> dict:
               f"output rel err {rel} over {B4_REL}")
     del got, want, acc, exact
     # (x, w) sets cycled so that neither operand stays in the L2
-    sets = _rotations(lambda: (x.clone(), w.clone()), M * K + K * N)
+    sets = rotations(lambda: (x.clone(), w.clone()), M * K + K * N, cap=32)
     # torch._int_mm wants M > 16 and K, N multiples of 8: zero-pad
     Mp, Kp, Np = max(M, 17), -(-K // 8) * 8, -(-N // 8) * 8
     pad = torch.nn.functional.pad
@@ -1149,7 +1229,7 @@ def _b4_case(M, K, N, gen, check) -> dict:
         "plain_ms": _graph_ms([lambda s=s: int8_matmul_plain(*s, a, bc, c)
                                for s in sets], min_calls=5),
         "library_ms": lib_ms, "library": lib_note,
-        **_bound(M * K + K * N + 4 * M * N, 2 * M * N * K, INT8_OPS)}
+        **bound(M * K + K * N + 4 * M * N, 2 * M * N * K / INT8_OPS * 1e3)}
 
 
 def _stream_case(kernel, M, K, N, gen, check) -> dict:
@@ -1182,7 +1262,8 @@ def _stream_case(kernel, M, K, N, gen, check) -> dict:
     del got, want
     # (x, w) sets cycled so that neither operand stays in the L2; the
     # library call multiplies bf16 x by the fold engine's bf16 weight
-    sets = _rotations(lambda: (x.clone(), w.clone()), 4 * M * K + w.numel())
+    sets = rotations(lambda: (x.clone(), w.clone()), 4 * M * K + w.numel(),
+                     cap=32)
 
     def folded(ww):
         wf = unpack_int4_weight(ww).float() if int4 else ww.float()
@@ -1200,8 +1281,8 @@ def _stream_case(kernel, M, K, N, gen, check) -> dict:
                                  for s in lib_sets]),
         "library": "torch.matmul(bf16 x, bf16 folded weight)",
         # x arrives in f32 on this path: 4 bytes per element read
-        **_bound(4 * M * K + w.numel() + 4 * M * N, 2 * M * N * K,
-                 BF16_FLOPS)}
+        **bound(4 * M * K + w.numel() + 4 * M * N,
+                2 * M * N * K / BF16_FLOPS * 1e3)}
     del sets, lib_sets
     return row
 
@@ -1515,10 +1596,7 @@ def main(argv=None) -> int:
     work.mkdir(parents=True, exist_ok=True)
     check = Checks()
     resolve_device("cuda")  # pins cudnn / matmul TF32 off
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     import triton  # B1's compiler, on the card's machine
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1530,9 +1608,11 @@ def main(argv=None) -> int:
            "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32})
     t0 = time.perf_counter()
     built = _cuda.build_all()
+    ptxas = ptxas_report(_cuda.BUILD)
     _emit({"phase": "build", "nvcc_seconds": built,
            "wall_seconds": time.perf_counter() - t0,
-           "directory": str(_cuda.BUILD), "arch": _cuda.ARCH})
+           "directory": str(_cuda.BUILD), "arch": _cuda.ARCH,
+           "ptxas": ptxas})
 
     # CIFAR-10, slice 1's path
     task = PRESETS["cifar10"]
@@ -1595,6 +1675,11 @@ def main(argv=None) -> int:
             check(row["launches"][name] > 0,
                   f"sd stream W{wbits}: {name} not launched")
 
+    # P, slice 4's path: the epilogue probe on B2's bf16 kernel
+    p_rows = phase_flash_epilogue(check)
+    p_launches = p_rows[0]["launches_in_entry_point_run"]
+    check(p_launches > 0, "flash_epilogue: not launched by its entry point")
+
     gn_sd = gn_unet + gn_dec
     kernels = [
         {**_gn_row(gn_sd, "sd",
@@ -1641,6 +1726,7 @@ def main(argv=None) -> int:
                  f"the {len(st[4]['shapes'])} B6 calls (linears and "
                  "streamed convs) of one SD stream W4 f32 UNet call at "
                  "batch 2; CUDA graph"),
+        _p_row(p_rows, p_launches),
     ]
     for row, key in ((kernels[1], "flash_attention"),
                      (kernels[2], "flash_streaming")):
@@ -1649,6 +1735,7 @@ def main(argv=None) -> int:
             "sd_v1_stream_w4": sd_stream[4]["launches"][key],
             "sd_v1_stream_w8": sd_stream[8]["launches"][key]}
     report = {"device": device, "nvidia_smi": smi, "build": built,
+              "ptxas": ptxas,
               "kernels": kernels, "kernel_shapes": rows, "gn_sd": gn_sd,
               "attn_kernels": attn, "fold": fold, "card_vs_cpu": card_cpu,
               "sim": sim, "profile": prof, "sd_spy": {
@@ -1660,7 +1747,8 @@ def main(argv=None) -> int:
                                     if k != "shapes"} for w, r in st.items()},
               "int_kernels": ints, "int8_cli": int8_cli,
               "int8_card_vs_cpu": int8_cpu, "int8_profile": int8_prof,
-              "sd_stream_cli": sd_stream, "failed": check.failed,
+              "sd_stream_cli": sd_stream, "flash_epilogue": p_rows,
+              "failed": check.failed,
               "launch_totals": {
                   "flash_attention": flash_attention.launches,
                   "flash_streaming": streaming_flash_attention.launches},

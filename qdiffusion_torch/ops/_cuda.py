@@ -37,6 +37,8 @@ SIGNATURES = {
     "flash_attention.cu": {
         "qdt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                 _I, _I, _I, _I, _I, _I, _P],
+        "qdt_flash_epilogue": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                               _P],
     },
     "int_matmul.cu": {
         "qdt_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

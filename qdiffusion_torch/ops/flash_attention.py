@@ -14,11 +14,17 @@ f32), the row softmax through the row reciprocal, then
 V is fake-quantized before the kernel (hoisted, TPU :266-270).
 
 What bounds it on an H100: at the SD shapes (S = 4096, D = 40 and
-S = 1024, D = 80) the exponent unit, then the two QK^T passes; see the
+S = 1024, D = 80) the exponent unit, then the QK^T and PV passes; see the
 source note in csrc/flash_attention.cu for the design. The TPU kernel
 holds one whole (tile_q, S) score tile in VMEM; shared memory cannot, so
 the CUDA kernel streams key blocks twice (row statistics, then p and PV),
 which gives the same normalized probabilities the quantizer needs.
+
+Which kernel serves which input: bf16 with D <= 128
+(every SD fold site) runs `flash_mma_kernel`, the Hopper design (score,
+p and output fragments in registers, one exponential per score without
+sm_q); f32 (the stream engine) and D > 128 run `flash_kernel`, the first
+design.
 
 `flash_supported` is the TPU cost model (`_pick_tile_q`, TPU :39-58 and
 :288-298) without its backend test: ops/attention.py uses it to pick B2

@@ -1,0 +1,1 @@
+"""Command-line probes of the port's kernels (run with `python -m`)."""

@@ -155,11 +155,13 @@ def _sm_pairs(card, kind):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kernel", ["B2", "B3"])
 @pytest.mark.parametrize("shape", [(2, 24, 200, 2, 40), (1, 70, 131, 3, 80),
-                                   (1, 40, 300, 1, 512)])
+                                   (1, 40, 300, 1, 512), (1, 130, 77, 2, 64),
+                                   (2, 65, 129, 1, 17)])
 def test_flash_kernels_match_plain(card, kernel, shape, dtype, kind):
     """Each CUDA kernel against its own plain version on the same CUDA
-    inputs (ragged T and S, D padded 40 -> 48). f32: 5e-5 plus at most
-    1e-3 of the elements one softmax bucket apart (delta * max|v|; sum
+    inputs (ragged T and S, D padded 40 -> 48; bf16 with D <= 128 runs
+    flash_mma_kernel, D = 17 through its element copies). f32: 5e-5 plus
+    at most 1e-3 of the elements one softmax bucket apart (delta * max|v|; sum
     order moves p across a rounding boundary; scores summed over up to 512
     products give 5e-5 absolute / 1e-4 relative, observed 2.2e-5 at D =
     512); bf16: 2e-2 (one bf16 rounding of p and of the output)."""
@@ -201,6 +203,79 @@ def test_flash_wrappers_refuse_what_the_kernel_does_not_take(card):
                         v.transpose(1, 2), scale=1.0)
     with pytest.raises(ValueError, match="k is"):
         flash_attention(q, k.cpu(), v, scale=1.0)
+
+
+@pytest.mark.parametrize("mode", ["fp_postnorm", "fp_prenorm", "cast_rt",
+                                  "mul_only", "floor_half", "round_only",
+                                  "round_clip", "full", "full_floor"])
+@pytest.mark.parametrize("shape", [(2, 128, 128, 2, 40), (1, 100, 150, 3, 40),
+                                   (1, 70, 131, 2, 32), (1, 33, 65, 1, 20)])
+def test_flash_epilogue_matches_plain(card, shape, mode):
+    """P's kernel against its plain version, every mode, round and ragged
+    T and S: fp modes and cast_rt 2e-2 absolute + 2e-2 relative; the
+    scaled modes within 2e-2 of max|plain| plus one bucket (delta * max|v|
+    for full and full_floor, max|v| for the others), with at most 1e-3 of
+    the elements beyond 2e-2 of max|plain| (an exp that differs by an ulp
+    can move p across a rounding boundary)."""
+    from qdiffusion_torch.ops.flash_epilogue import DELTA, flash_epilogue, \
+        flash_epilogue_plain
+
+    q, k, v = _attn_inputs(card, shape, torch.bfloat16, seed=7)
+    q = (2.5 * q.float()).to(torch.bfloat16)  # a peaked softmax
+    before = flash_epilogue.launches
+    got = flash_epilogue(q, k, v, scale=shape[-1] ** -0.5, mode=mode)
+    assert flash_epilogue.launches == before + 1
+    want = flash_epilogue_plain(q, k, v, scale=shape[-1] ** -0.5, mode=mode)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    got, want = got.float(), want.float()
+    if mode in ("fp_postnorm", "fp_prenorm", "cast_rt"):
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+        return
+    near = 2e-2 * float(want.abs().max())
+    bucket = (DELTA if mode.startswith("full") else 1.0) * float(
+        v.float().abs().max())
+    diff = (got - want).abs()
+    assert float(diff.max()) <= near + bucket
+    assert float((diff > near).float().mean()) <= 1e-3
+
+
+def test_flash_epilogue_refuses_what_the_kernel_does_not_take(card):
+    from qdiffusion_torch.ops import flash_epilogue as fe
+
+    q, k, v = _attn_inputs(card, (1, 8, 8, 2, 16), torch.bfloat16)
+    with pytest.raises(ValueError, match="device"):
+        fe._check(q.cpu(), k.cpu(), v.cpu())  # a CPU tensor at the C entry
+    with pytest.raises(ValueError, match="k is"):
+        fe.flash_epilogue(q, k.cpu(), v, scale=1.0, mode="full")
+    with pytest.raises(ValueError, match="dtype"):
+        fe.flash_epilogue(q.float(), k.float(), v.float(), scale=1.0,
+                          mode="full")
+    with pytest.raises(ValueError, match="contiguous"):
+        fe.flash_epilogue(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), scale=1.0, mode="full")
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros((1, 8, 1, 136), device=card, dtype=torch.bfloat16)
+        fe.flash_epilogue(big, big, big, scale=1.0, mode="full")
+    with pytest.raises(ValueError, match="mode"):
+        fe.flash_epilogue(q, k, v, scale=1.0, mode="exact")
+
+
+@pytest.mark.parametrize("d", [64, 80])
+def test_flash_epilogue_refuses_head_dims_past_its_class(card, d):
+    """P's modes are built for D <= 48 only (P's shape has D = 40): the
+    wrapper refuses larger D and so does the C entry."""
+    from qdiffusion_torch.ops import _cuda
+    from qdiffusion_torch.ops import flash_epilogue as fe
+
+    q, k, v = _attn_inputs(card, (1, 70, 131, 2, d), torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fe.flash_epilogue(q, k, v, scale=d ** -0.5, mode="full")
+    o = torch.empty_like(q)
+    err = _cuda.library("flash_attention.cu").qdt_flash_epilogue(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, 70, 131,
+        2, d, d ** -0.5, fe.MODES.index("full"), _cuda.stream_ptr(q.device))
+    assert err != 0
 
 
 # -- B4 / B5 / B6: the CUDA integer matmul kernels -------------------------
