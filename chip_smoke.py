@@ -25,13 +25,18 @@ every kernel of them against its plain PyTorch version:
   5. attn_kernels - B2 (flash_attention) at (8, 4096, 8, 40) and
                 (8, 1024, 8, 80), B3 (streaming_flash_attention) at
                 (4, 4096, 1, 512), bf16 and f32, with and without the
-                softmax/V quantizers, and B2 at P's (2, 4096, 8, 40) in
-                bf16: error against the plain version, kernel / plain /
-                F.scaled_dot_product_attention time, the bound (bytes, MMA
+                softmax/V quantizers, B2 at P's (2, 4096, 8, 40) in
+                bf16, and B2 at the SD stream call's (2, 4096, 8, 40) and
+                (2, 1024, 8, 80) in f32: error against the plain version,
+                kernel / plain / F.scaled_dot_product_attention time, the
+                bound (bytes, MMA
                 flops, exponentials) and the CUDA design that ran, from
                 the profiler's kernel names ("mma": flash_mma_kernel, which
                 every bf16 row at D <= 128 must show; "first":
-                flash_kernel, for f32 and D = 512);
+                flash_kernel, for f32 and D = 512). Every design check reads
+                the names of one launch per case and shape made right after
+                the build, before any CUDA graph: after one, the profiler
+                here keeps only some kernels of a short window;
   6. gn_sd    - B1 at every GroupNorm shape of one SD UNet call (batch 8,
                 CFG) and one VAE decode (batch 4), bf16;
   7. sd_fold_cli - writes the UNet / VAE / CLIP npz files, a token-ids
@@ -54,7 +59,11 @@ every kernel of them against its plain PyTorch version:
                 by spies: error against the plain version (B4: the int32
                 product exactly, the output bit for bit; B5/B6: 1e-3 of the
                 largest output), kernel / plain / library time in a CUDA
-                graph over inputs that outgrow the L2, and the bound;
+                graph over inputs that outgrow the L2, and the bound; for
+                B5/B6 also the launch plan (tile rows, K splits), two
+                launches bit-equal, and the design from the profiler's
+                kernel names ("mma": stream_mma_kernel, with
+                stream_reduce_kernel exactly when K is split);
   11. int8_cli - `cli sample --task cifar10 --weight-bit 4 --quant-act
                 --split --engine int8 --n 128 --batch 64` (DDIM-100): the
                 B4 launches against 100 x the spy's per-step count per
@@ -62,6 +71,10 @@ every kernel of them against its plain PyTorch version:
                 f32 carriers against the CPU's f32 carrier (every int8
                 activation within one bucket beyond its input's drift)
                 and the card's f32 carrier against its sim step;
+  (sd_stream_sites: before 10, one SD stream W4 and one W8 UNet call at
+                batch 2 in which every B6 / B5 call also runs its plain
+                version on the CPU on a copy of that call's inputs: the
+                largest per-site error, 1e-3 of the site's largest output.)
   12. sd_stream_cli - `cli sample --task sd_v1 --weight-bit 4 --engine
                 stream --stream-convs --n 2 --batch 1` (PLMS-50, CFG 7.5;
                 B6 launches against 51 x the spy's per-call count per
@@ -138,7 +151,8 @@ def ptxas_report(build: Path) -> dict:
     """Registers and spill bytes of each kernel, from the `-Xptxas -v`
     reports that ops/_cuda.py writes beside the libraries: {source:
     {kernel: [registers, spill stores, spill loads]}}, kernels by their
-    template arguments (flash_mma_kernel<D/16, epilogue>)."""
+    template arguments (flash_mma_kernel<D/16, epilogue>,
+    stream_mma_kernel<BM, BN, WM, STAGES, MINB, x type, NH>)."""
     import re
 
     out = {}
@@ -147,9 +161,12 @@ def ptxas_report(build: Path) -> dict:
         for line in f.read_text().splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                k = re.search(r"(flash_mma_kernel)ILi(\d+)ELi(\d+)E", m.group(1))
-                name = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k
-                        else m.group(1)[-60:])
+                k = re.search(r"(flash_mma_kernel|stream_mma_kernel)I(\w+?)"
+                              r"EvN", m.group(1))
+                args = k and re.findall(r"Li(\d+)E|(f)(?=Li)|13__nv_(bf16)",
+                                        k.group(2).replace("bfloat", "bf"))
+                name = (f"{k.group(1)}<{','.join(''.join(a) for a in args)}>"
+                        if k else m.group(1)[-60:])
                 rows[name] = [None, None, None]
             elif name and "spill stores" in line:
                 n = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
@@ -474,7 +491,8 @@ def profile_breakdown(run, reps: int, trace: Path, what: str) -> dict:
                 "flash_attention" if any(s in name for s in (
                     "flash_kernel", "flash_mma_kernel")) else
                 "int matmul (B4-B6)" if any(s in name for s in (
-                    "b4_kernel", "stream_kernel")) else
+                    "b4_kernel", "stream_mma_kernel",
+                    "stream_reduce_kernel")) else
                 "conv" if any(s in name for s in ("conv", "fprop",
                                                    "implicit")) else
                 # cuBLAS's Hopper GEMMs are named nvjet_*
@@ -613,48 +631,134 @@ def _attn_case(shape, dtype, quant, seed):
     return (q, k, v), sm_q, v_q
 
 
-def _run_design(run):
-    """`run()` under torch.profiler, and the flash design its kernel names
-    show: "mma" (flash_mma_kernel), "first" (flash_kernel) or None."""
+def _kernel_names(run, family: str, tries: int = 3):
+    """`run()` under torch.profiler, and the names of what it recorded.
+    Reliable only before the process captures its first CUDA graph: after
+    one, the profiler here (torch 2.11, CUDA 12.8) keeps only some kernels
+    of a short window (at times the last one alone), so `probe_designs`
+    calls it before any phase times a graph. Even then a window at times
+    holds no kernel of the run (once, for one B2 case, on an H100), so
+    a window with no name containing `family` is profiled again, up to
+    `tries` windows in all; which kernel ran is left to the caller."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # a kernel of PyTorch's own first: once the profiler has run
-        # earlier in the process, it (torch 2.11, CUDA 12.8) records no
-        # kernel of the window until PyTorch launches one
-        torch.zeros(1, device="cuda").add_(1)
-        out = run()
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()]
-    design = ("mma" if any("flash_mma_kernel" in n for n in names) else
-              "first" if any("flash_kernel" in n for n in names) else None)
-    return out, design
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # a kernel of PyTorch's own first: once the profiler has run
+            # earlier in the process, it records no kernel of a window
+            # until PyTorch launches one
+            torch.zeros(1, device="cuda").add_(1)
+            out = run()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        if any(family in n for n in names):
+            break
+    return out, names
 
 
-def phase_attn_kernels(check: Checks) -> list:
+def _flash_design(names) -> str:
+    """The flash design that kernel names show: "mma" (flash_mma_kernel),
+    "first" (flash_kernel) or None."""
+    return ("mma" if any("flash_mma_kernel" in n for n in names) else
+            "first" if any("flash_kernel" in n for n in names) else None)
+
+
+def _stream_design(names, splits: int):
+    """"mma" when the names show B5/B6's Hopper kernel, stream_mma_kernel,
+    with stream_reduce_kernel exactly when K is split, else None (the
+    first design was stream_kernel)."""
+    mma = any("stream_mma_kernel" in n for n in names)
+    reduce = any("stream_reduce_kernel" in n for n in names)
+    return "mma" if mma and reduce == (splits > 1) else None
+
+
+# (kernel, shape, sites per SD call, dtypes, quantizers on) of B2 / B3;
+# (2, 4096, 8, 40) is P's shape, on no SD fold site; in f32 it and
+# (2, 1024, 8, 80) are the 10 flash sites of one SD stream call (batch 2,
+# f32), where SDPA in f32 is timed as the yardstick
+_BOTH = (torch.bfloat16, torch.float32)
+ATTN_CASES = [
+    ("flash_attention", (8, 4096, 8, 40), 5, _BOTH, (False, True)),
+    ("flash_attention", (8, 1024, 8, 80), 5, _BOTH, (False, True)),
+    ("flash_streaming", (4, 4096, 1, 512), 1, _BOTH, (False, True)),
+    ("flash_attention", P_SHAPE, 0, (torch.bfloat16,), (False,)),
+    ("flash_attention", (2, 4096, 8, 40), 5, (torch.float32,), (False,)),
+    ("flash_attention", (2, 1024, 8, 80), 5, (torch.float32,), (False,))]
+
+
+def _stream_operands(kernel, M, K, N, gen):
+    int4 = kernel == "int4_stream_matmul"
+    x = torch.randn((M, K), generator=gen, device="cuda")  # f32, as the
+    # stream engine's f32 activations reach it
+    if int4:
+        w = torch.randint(0, 256, (K // 2, N), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+    else:
+        w = torch.randint(-128, 128, (K, N), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    scale = 1e-4 + 1e-3 * torch.rand(N, generator=gen, device="cuda")
+    shift = 1e-2 * torch.randn(N, generator=gen, device="cuda")
+    bias = torch.randn(N, generator=gen, device="cuda")
+    return x, w, scale, shift, bias
+
+
+def probe_designs() -> dict:
+    """Kernel names of one launch of every B2/B3 case of `ATTN_CASES` and
+    of B5/B6 at every shape of an SD stream call (the fixed lists of
+    ops/int8_matmul.py, which the int_kernels phase holds its spies'
+    shapes to), each under torch.profiler before any CUDA graph exists
+    in the process: {(kernel, shape, dtype, quant) or (kernel, (M, K, N)): names}."""
+    from qdiffusion_torch.ops.flash_attention import flash_attention
+    from qdiffusion_torch.ops.flash_streaming import \
+        streaming_flash_attention
+    from qdiffusion_torch.ops.int4_matmul import int4_dense_stream
+    from qdiffusion_torch.ops.int8_matmul import SD_STREAM_W4, \
+        SD_STREAM_W8, int8_dense_stream
+
+    fns = {"flash_attention": flash_attention,
+           "flash_streaming": streaming_flash_attention,
+           "int4_stream_matmul": int4_dense_stream,
+           "int8_stream_matmul": int8_dense_stream}
+    out = {}
+    for seed, (name, shape, _, dtypes, quants) in enumerate(ATTN_CASES):
+        for dtype in dtypes:
+            for quant in quants:
+                (q, k, v), sm_q, v_q = _attn_case(shape, dtype, quant, seed)
+                _, out[(name, shape, dtype, quant)] = _kernel_names(
+                    lambda: fns[name](q, k, v, scale=shape[-1] ** -0.5,
+                                      sm_q=sm_q, v_q=v_q), "flash")
+                del q, k, v
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for kernel, shapes in (("int4_stream_matmul", SD_STREAM_W4),
+                           ("int8_stream_matmul", SD_STREAM_W8)):
+        for M, K, N in shapes:
+            x, w, scale, shift, bias = _stream_operands(kernel, M, K, N, gen)
+            _, out[(kernel, (M, K, N))] = _kernel_names(
+                lambda: fns[kernel](x, w, scale, shift, bias=bias),
+                "stream_")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_attn_kernels(check: Checks, designs: dict) -> list:
     """B2 and B3 at the SD and VAE shapes against their plain versions,
     timed in CUDA graphs over inputs that outgrow the L2; B2 also at P's
-    shape in bf16."""
+    shape in bf16 and at the SD stream call's shapes in f32. `designs`:
+    `probe_designs`' kernel names."""
     from qdiffusion_torch.ops.flash_attention import flash_attention, \
         flash_attention_plain
     from qdiffusion_torch.ops.flash_streaming import \
         streaming_flash_attention, streaming_flash_attention_plain
 
-    both = (torch.bfloat16, torch.float32)
-    # (kernel, shape, sites per SD call, dtypes, quantizers on);
-    # (2, 4096, 8, 40) is P's shape, on no SD fold site
-    cases = [("flash_attention", (8, 4096, 8, 40), 5, both, (False, True)),
-             ("flash_attention", (8, 1024, 8, 80), 5, both, (False, True)),
-             ("flash_streaming", (4, 4096, 1, 512), 1, both, (False, True)),
-             ("flash_attention", P_SHAPE, 0, (torch.bfloat16,), (False,))]
     fns = {"flash_attention": (flash_attention, flash_attention_plain),
            "flash_streaming": (streaming_flash_attention,
                                streaming_flash_attention_plain)}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
     for seed, (name, shape, per_call, dtypes, quants) in enumerate(
-            cases):
+            ATTN_CASES):
         fn, plain = fns[name]
         d = shape[-1]
         scale = d ** -0.5
@@ -662,7 +766,8 @@ def phase_attn_kernels(check: Checks) -> list:
             for quant in quants:
                 (q, k, v), sm_q, v_q = _attn_case(shape, dtype, quant, seed)
                 kw = dict(scale=scale, sm_q=sm_q, v_q=v_q)
-                got, design = _run_design(lambda: fn(q, k, v, **kw))
+                got = fn(q, k, v, **kw)
+                design = _flash_design(designs[(name, shape, dtype, quant)])
                 want = plain(q, k, v, **kw)
                 torch.cuda.synchronize()
                 diff = (got.float() - want.float()).abs()
@@ -708,7 +813,8 @@ def phase_attn_kernels(check: Checks) -> list:
                     "library_ms": _graph_ms([lambda s=s: sdpa(
                         *(a.transpose(1, 2) for a in s), scale=scale)
                         for s in sets], min_calls=10)
-                    if not quant and dtype == torch.bfloat16 else None,
+                    if not quant and (dtype == torch.bfloat16
+                                      or shape[0] == 2) else None,
                     **attention_bound(shape, es),
                 }
                 del sets, q, k, v
@@ -1107,6 +1213,41 @@ def int8_setup(task, out: Path, check: Checks) -> dict:
             "shapes": shapes, "row": row}
 
 
+class stream_site_check:
+    """For the length of a `with` block, every B5 / B6 call of the stream
+    engine (qlayers' int8_dense_stream / int4_dense_stream) also runs the
+    plain version on the CPU on a copy of that call's own inputs; `errs`
+    gets ((M, K, N), max|card - CPU| / max|CPU|) per call. The same
+    inputs per site, so each error is the kernel's alone."""
+
+    def __enter__(self):
+        import qdiffusion_torch.ops.qlayers as ql
+
+        self.ql, self.errs = ql, []
+        self.saved = ql.int8_dense_stream, ql.int4_dense_stream
+        ql.int8_dense_stream, ql.int4_dense_stream = (
+            self._wrap(f) for f in self.saved)
+        return self
+
+    def _wrap(self, real):
+        def cpu(a):
+            return a.cpu() if isinstance(a, torch.Tensor) else a
+
+        def run(x, w, scale, shift, bias=None, *, out_dtype=None):
+            got = real(x, w, scale, shift, bias, out_dtype=out_dtype)
+            want = real(*(cpu(a) for a in (x, w, scale, shift, bias)),
+                        out_dtype=out_dtype).float()
+            err = float((got.cpu().float() - want).abs().max())
+            self.errs.append(((x.numel() // x.shape[-1], x.shape[-1],
+                               got.shape[-1]),
+                              err / max(float(want.abs().max()), 1e-30)))
+            return got
+        return run
+
+    def __exit__(self, *exc):
+        self.ql.int8_dense_stream, self.ql.int4_dense_stream = self.saved
+
+
 def sd_stream_spy(task, work: Path, wbits: int, check: Checks,
                   profile_to: Path = None) -> dict:
     """One SD stream UNet call at batch 2 with context (f32, the CLI's
@@ -1150,6 +1291,17 @@ def sd_stream_spy(task, work: Path, wbits: int, check: Checks,
           f"{res['other_kernel_calls']} of the other kernel")
     check(0 < len(convs) < conv_sites, f"sd stream W{wbits}: {len(convs)} "
           f"of {conv_sites} conv sites stream")
+    with stream_site_check() as sites:
+        step(x, t, c)
+    worst = max(sites.errs, key=lambda e: e[1])
+    res["sites"] = {"sites": len(sites.errs), "max_rel_err": worst[1],
+                    "worst_site": list(worst[0]),
+                    "tolerance": f"{STREAM_REL} of the site's largest output",
+                    "ok": worst[1] <= STREAM_REL}
+    check(len(sites.errs) == len(res["shapes"]) and res["sites"]["ok"],
+          f"sd stream W{wbits} per site: {len(sites.errs)} sites, largest "
+          f"rel err {worst[1]} at {worst[0]} (limit {STREAM_REL})")
+    _emit({"phase": "sd_stream_sites", "wbits": wbits, **res["sites"]})
     prof = None
     if profile_to is not None:
         def run():
@@ -1232,34 +1384,37 @@ def _b4_case(M, K, N, gen, check) -> dict:
         **bound(M * K + K * N + 4 * M * N, 2 * M * N * K / INT8_OPS * 1e3)}
 
 
-def _stream_case(kernel, M, K, N, gen, check) -> dict:
+def _stream_case(kernel, M, K, N, gen, check, names) -> dict:
+    """B5 / B6 at (M, K, N) against the plain version, two launches
+    compared bit for bit, the design from `names` (the profiler's kernel
+    names of a launch at this shape, None if none was probed), times and
+    the bound."""
     from qdiffusion_torch.ops.int4_matmul import int4_dense_stream, \
         int4_stream_plain, unpack_int4_weight
     from qdiffusion_torch.ops.int8_matmul import int8_dense_stream, \
-        int8_stream_plain
+        int8_stream_plain, stream_plan
 
     int4 = kernel == "int4_stream_matmul"
-    x = torch.randn((M, K), generator=gen, device="cuda")  # f32, as the
-    # stream engine's f32 activations reach it
-    if int4:
-        w = torch.randint(0, 256, (K // 2, N), generator=gen, device="cuda",
-                          dtype=torch.uint8)
-    else:
-        w = torch.randint(-128, 128, (K, N), generator=gen, device="cuda",
-                          dtype=torch.int8)
-    scale = 1e-4 + 1e-3 * torch.rand(N, generator=gen, device="cuda")
-    shift = 1e-2 * torch.randn(N, generator=gen, device="cuda")
-    bias = torch.randn(N, generator=gen, device="cuda")
+    x, w, scale, shift, bias = _stream_operands(kernel, M, K, N, gen)
     fn, plain = (int4_dense_stream, int4_stream_plain) if int4 else (
         int8_dense_stream, int8_stream_plain)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = stream_plan(M, N, K, int4, sms)
     got = fn(x, w, scale, shift, bias=bias)
+    again = fn(x, w, scale, shift, bias=bias)
     want = plain(x, w, scale, shift, bias)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     rel = err / max(float(want.abs().max()), 1e-30)
     ok = rel <= STREAM_REL
     check(ok, f"{kernel} {(M, K, N)}: rel err {rel} over {STREAM_REL}")
-    del got, want
+    same = bool(torch.equal(got, again))
+    check(same, f"{kernel} {(M, K, N)}: two launches differ")
+    design = _stream_design(names or [], plan.splits)
+    check(design == "mma", f"{kernel} {(M, K, N)}: profiler kernels "
+          f"{[n for n in names or [] if 'stream' in n]} for plan {plan}"
+          + ("" if names is not None else " (shape not probed)"))
+    del got, again, want
     # (x, w) sets cycled so that neither operand stays in the L2; the
     # library call multiplies bf16 x by the fold engine's bf16 weight
     sets = rotations(lambda: (x.clone(), w.clone()), 4 * M * K + w.numel(),
@@ -1273,6 +1428,9 @@ def _stream_case(kernel, M, K, N, gen, check) -> dict:
     row = {
         "max_abs_err": err, "rel_err": rel,
         "tolerance": f"{STREAM_REL} of the largest output", "ok": ok,
+        "plan": {"bm": plan.bm, "bn": plan.bn, "splits": plan.splits,
+                 "kps": plan.kps, "grid": list(plan.grid)},
+        "bit_equal_relaunch": same, "design": design,
         "ms": _graph_ms([lambda s=s: fn(*s, scale, shift, bias=bias)
                          for s in sets]),
         "plain_ms": _graph_ms([lambda s=s: plain(*s, scale, shift, bias)
@@ -1287,7 +1445,8 @@ def _stream_case(kernel, M, K, N, gen, check) -> dict:
     return row
 
 
-def phase_int_kernels(b4: list, b5: list, b6: list, check: Checks) -> list:
+def phase_int_kernels(b4: list, b5: list, b6: list, check: Checks,
+                      designs: dict) -> list:
     """B4 at every distinct (M, K, N) of one CIFAR int8 step, B5 / B6 at
     every distinct one of one SD stream UNet call (call-order lists, so a
     shape's multiplicity is its count per step / call)."""
@@ -1299,7 +1458,8 @@ def phase_int_kernels(b4: list, b5: list, b6: list, check: Checks) -> list:
             ("int4_stream_matmul", b6, "sd_v1 stream W4 UNet call, batch 2")):
         for (M, K, N), per_call in _counts(shapes).items():
             case = _b4_case(M, K, N, gen, check) if kernel == "int8_matmul" \
-                else _stream_case(kernel, M, K, N, gen, check)
+                else _stream_case(kernel, M, K, N, gen, check,
+                                  designs.get((kernel, (M, K, N))))
             row = {"phase": "int_kernel", "kernel": kernel, "where": where,
                    "shape": [M, K, N], "per_call": per_call, **case}
             _emit(row)
@@ -1531,7 +1691,11 @@ def _int_row(rows, name, replaces, launches, per):
         else "operations",
         "library_ms": None if any(r["library_ms"] is None for r in sel)
         else tot("library_ms"),
-        "per": per, "shapes": len(sel)}
+        "per": per, "shapes": len(sel),
+        **({"design": "mma" if all(r["design"] == "mma" for r in sel)
+            else None,
+            "bit_equal_relaunch": all(r["bit_equal_relaunch"] for r in sel)}
+           if "design" in sel[0] else {})}
 
 
 def _gn_row(rows, where, per, launches):
@@ -1613,6 +1777,11 @@ def main(argv=None) -> int:
            "wall_seconds": time.perf_counter() - t0,
            "directory": str(_cuda.BUILD), "arch": _cuda.ARCH,
            "ptxas": ptxas})
+    # the designs that ran, from the profiler, before any CUDA graph
+    t0 = time.perf_counter()
+    designs = probe_designs()
+    _emit({"phase": "designs", "probed": len(designs),
+           "seconds": time.perf_counter() - t0})
 
     # CIFAR-10, slice 1's path
     task = PRESETS["cifar10"]
@@ -1644,7 +1813,7 @@ def main(argv=None) -> int:
     gn_dec = phase_kernels(spy["decode_gn_shapes"], check,
                            dtypes=(torch.bfloat16,), phase="gn_sd",
                            where="sd_v1 VAE decode")
-    attn = phase_attn_kernels(check)
+    attn = phase_attn_kernels(check, designs)
     files = phase_sd_files(sd, work, check)
     sd_fold = phase_sd_fold_cli(sd, work, spy, check)
     sd_cpu = phase_sd_card_vs_cpu(sd, work, check)
@@ -1660,7 +1829,7 @@ def main(argv=None) -> int:
                            profile_to=out if args.profile else None),
           8: sd_stream_spy(sd, work, 8, check)}
     ints = phase_int_kernels(i8["shapes"], st[8]["shapes"], st[4]["shapes"],
-                             check)
+                             check, designs)
     int8_cli = phase_int8_cli(task, out, i8, check)
     int8_cpu = phase_int8_card_vs_cpu(task, out, i8, check)
     int8_prof = phase_int8_profile(i8, out) if args.profile else None
@@ -1728,6 +1897,18 @@ def main(argv=None) -> int:
                  "batch 2; CUDA graph"),
         _p_row(p_rows, p_launches),
     ]
+    stream_f32 = [r for r in attn if r["kernel"] == "flash_attention"
+                  and r["dtype"] == "float32" and r["shape"][0] == 2]
+    ssum = lambda key: sum(r[key] * r["per_call"] for r in stream_f32)
+    kernels[1]["f32_route"] = {
+        "per": "the 10 flash sites of one SD stream f32 UNet call at batch "
+               "2 (5 x (2,4096,8,40), 5 x (2,1024,8,80)); CUDA graph",
+        "design": sorted({str(r["design"]) for r in stream_f32}),
+        "ms": ssum("ms"), "plain_ms": ssum("plain_ms"),
+        "bound_ms": max(ssum("bytes_ms"), ssum("ops_ms")),
+        "bound_by": "bytes" if ssum("bytes_ms") >= ssum("ops_ms")
+        else "operations",
+        "library_ms": ssum("library_ms")}
     for row, key in ((kernels[1], "flash_attention"),
                      (kernels[2], "flash_streaming")):
         row["launches_by_path"] = {

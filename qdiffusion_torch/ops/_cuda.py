@@ -42,8 +42,8 @@ SIGNATURES = {
     },
     "int_matmul.cu": {
         "qdt_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-        "qdt_stream_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _P],
+        "qdt_stream_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -19,10 +19,12 @@ even: the stream pack pads an odd K with a zero row and the consumer pads
 x with a zero column (ops/qlayers.py).
 
 B6 replaces `int4_stream_matmul` (pallas_call :129; wrapper
-`int4_dense_stream` :170) with the CUDA C++ kernel in csrc/int_matmul.cu,
-which unpacks one packed tile of rows [k0, k0+tk) into the w rows
-[k0, k0+tk) and [K/2+k0, K/2+k0+tk) while staging it, against the matching
-x columns. `int4_dense_stream` takes any device: a CPU tensor runs the
+`int4_dense_stream` :170) with the CUDA C++ kernel in csrc/int_matmul.cu
+that B5 uses, on B5's launch plan (int8_matmul.py::stream_plan): a ring
+stage holds packed rows [k0, k0+32) as bytes, and their low and high
+nibbles, widened to bf16 in registers, multiply x columns [k0, k0+32) and
+[K/2+k0, K/2+k0+32). A K split covers packed rows, so each split keeps
+that pairing. `int4_dense_stream` takes any device: a CPU tensor runs the
 plain version, a CUDA tensor launches the kernel through
 `int4_stream_matmul`, which counts its launches and raises on what the
 kernel does not take.

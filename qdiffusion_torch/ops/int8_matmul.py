@@ -20,8 +20,11 @@ with the bias fused into const. int8 values are exact in bf16, so the
 products are those of the fold engine's bf16 matmul.
 
 Both are CUDA C++ in csrc/int_matmul.cu (see its note for what bounds them
-on an H100 and the design). The TPU wrappers pad (M, K, N) to Mosaic's
-tiles; the CUDA kernels mask their ragged edges, so nothing is padded.
+on an H100 and the design). B5 (and B6, which shares its launch) runs on
+`stream_plan`: a tile height chosen by M and a K split, added up in a
+fixed order, wherever the output tiles alone leave SMs idle. The TPU
+wrappers pad (M, K, N) to Mosaic's tiles; the CUDA kernels mask their
+ragged edges, so nothing is padded.
 
 `int8_dense_pallas` and `int8_dense_stream` take any device: a CPU tensor
 runs the plain version (the same arithmetic in PyTorch), a CUDA tensor
@@ -31,13 +34,14 @@ which count their launches and raise on what the kernel does not take.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 __all__ = ["int8_matmul_dequant", "int8_matmul_plain", "int8_dense_pallas",
            "int8_stream_matmul", "int8_stream_plain", "int8_dense_stream",
-           "per_column"]
+           "per_column", "StreamPlan", "stream_plan", "SD_STREAM_W4",
+           "SD_STREAM_W8"]
 
 
 def per_column(a, n: int, device) -> torch.Tensor:
@@ -150,12 +154,133 @@ def int8_stream_plain(x: torch.Tensor, w_c: torch.Tensor,
     return (acc * scale + s * shift + const).to(out_dtype or x.dtype)
 
 
+#: The stream kernels' launch geometry (csrc/int_matmul.cu): block tiles
+#: of 16 or 32 rows by STREAM_BN columns, and 64 x columns per ring stage
+#: (64 int8 weight rows for B5, 32 packed rows for B6).
+STREAM_TILE_ROWS = (16, 32)
+STREAM_BN = 128
+STREAM_X_STAGE = 64
+STREAM_WAVE = 2  # blocks per SM that a grid should reach before K is split
+STREAM_SPLIT_CAP = 16  # most K splits of one launch
+STREAM_MIN_STAGES = 4  # fewest ring stages a split walks
+
+
+class StreamPlan(NamedTuple):
+    """How one B5 / B6 launch covers (M, N, K): `bm` x `bn` tiles on a
+    grid of (n_tiles, m_tiles, splits) blocks; split s walks weight rows
+    [s * kps, min((s + 1) * kps, kw)) in stages of `stage_rows`."""
+
+    bm: int
+    bn: int
+    splits: int
+    kps: int
+    kw: int
+    stage_rows: int
+    grid: tuple
+
+
+def stream_plan(M: int, N: int, K: int, int4: bool, sms: int = 132,
+                splits: Optional[int] = None) -> StreamPlan:
+    """The launch plan of B5 (int4 False) or B6 at (M, K) x (K, N) on a
+    card of `sms` SMs: a 16 x 128 tile (one mma.sync row block) for
+    M <= 16, which is pure weight streaming, and 32 x 128 above (the
+    fastest tile on an H100 over the SD stream shapes, from 128 to 8,192
+    rows: PERF.md section 6). Where the output tiles give fewer than
+    STREAM_WAVE blocks per SM, K is split (on stage boundaries, at most
+    STREAM_SPLIT_CAP ways, each split at least STREAM_MIN_STAGES stages)
+    until the grid does. `splits` asks for that many splits instead (as
+    many as whole stages allow, for a sweep)."""
+    bm = 16 if M <= 16 else 32
+    bn = STREAM_BN
+    kw = K // 2 if int4 else K
+    stage_rows = STREAM_X_STAGE // (2 if int4 else 1)
+    stages = -(-kw // stage_rows)
+    tiles = -(-M // bm) * -(-N // bn)
+    wave = STREAM_WAVE * sms
+    if splits is None:
+        splits = 1
+        if tiles < wave:
+            splits = max(1, min(STREAM_SPLIT_CAP, -(-wave // tiles),
+                                stages // STREAM_MIN_STAGES))
+    per = -(-stages // splits)  # stages per split
+    splits = -(-stages // per)  # no empty split
+    return StreamPlan(bm, bn, splits, per * stage_rows, kw, stage_rows,
+                      (-(-N // bn), -(-M // bm), splits))
+
+
+# The product shapes of B5 / B6 in one SD v1 stream UNet call at batch 2
+# (CFG of batch 1, 64x64 latents), which the plan tests and the card
+# bench cover: (M, K, N) -> launches per call, from the UNet's config (model
+# channels 320, channel_mult (1, 2, 4, 4), 2 res blocks per level, spatial
+# transformers at 64x64, 32x32, 16x16 and the 8x8 middle, context 77 x
+# 768) and the stream engine's byte cost model (ops/qlayers.py::
+# _stream_conv_profitable): M = 2 * H * W for convs (K = 9 C_in for 3x3)
+# and token linears, M = 2 for the time-embedding and emb_layers linears,
+# M = 2 * 77 for the context k/v projections.
+# B6 (W4): all 184 linears and the 36 convs the cost model streams.
+SD_STREAM_W4 = {
+    (2, 320, 1280): 1,       # time_embed.0
+    (2, 1280, 320): 5,       # emb_layers at 320 channels
+    (2, 1280, 640): 5,
+    (2, 1280, 1280): 13,     # time_embed.2 and emb_layers at 1280
+    (128, 1280, 1280): 8,    # 8x8 middle transformer q/k/v/out, proj 1x1
+    (128, 1280, 10240): 1,   # its GEGLU projection
+    (128, 2560, 1280): 3,    # 8x8 decoder 1x1 skips
+    (128, 5120, 1280): 1,    # its GEGLU output
+    (128, 11520, 1280): 12,  # 8x8 3x3 convs, 1280 in
+    (128, 23040, 1280): 3,   # 8x8 decoder 3x3 convs, 2560 in
+    (154, 768, 320): 10,     # context k/v projections
+    (154, 768, 640): 10,
+    (154, 768, 1280): 12,
+    (512, 640, 1280): 1,
+    (512, 1280, 1280): 40,
+    (512, 1280, 10240): 5,
+    (512, 1920, 1280): 1,
+    (512, 2560, 1280): 2,
+    (512, 5120, 1280): 5,
+    (2048, 640, 640): 30,
+    (2048, 640, 5120): 5,
+    (2048, 1280, 640): 1,
+    (2048, 1920, 640): 1,
+    (2048, 2560, 640): 5,
+    (8192, 320, 320): 30,
+    (8192, 320, 2560): 5,
+    (8192, 1280, 320): 5,
+}
+# B5 (W8): the 34 convs the cost model streams (8-bit linears dequantize
+# and take a plain matmul)
+SD_STREAM_W8 = {
+    (128, 1280, 1280): 2,
+    (128, 2560, 1280): 3,
+    (128, 11520, 1280): 12,
+    (128, 23040, 1280): 3,
+    (512, 1280, 1280): 10,
+    (512, 1920, 1280): 1,
+    (512, 2560, 1280): 2,
+    (2048, 1920, 640): 1,
+}
+
+
+_sm_counts: dict = {}
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
+
+
 def launch_stream(fn: str, x: torch.Tensor, w: torch.Tensor,
                   scale: torch.Tensor, shift: torch.Tensor,
                   const: torch.Tensor, out_dtype, int4: bool
                   ) -> torch.Tensor:
     """One launch of csrc/int_matmul.cu's streaming kernel: B5 (int4
-    False; w (K, N) int8) or B6 (int4 True; w (K/2, N) uint8 nibbles)."""
+    False; w (K, N) int8) or B6 (int4 True; w (K/2, N) uint8 nibbles),
+    on `stream_plan`'s tile and K splits (a split launch adds its
+    partials in a second kernel, over a workspace allocated here)."""
     from qdiffusion_torch.ops import _cuda
 
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -171,13 +296,17 @@ def launch_stream(fn: str, x: torch.Tensor, w: torch.Tensor,
                            x.shape[1] // 2 if int4 else x.shape[1])
     M, K = x.shape
     N = w.shape[1]
+    plan = stream_plan(M, N, K, int4, _sm_count(x.device))
     y = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    ws = torch.empty(plan.splits * M * (N + 1), dtype=torch.float32,
+                     device=x.device) if plan.splits > 1 else None
     err = _cuda.library("int_matmul.cu").qdt_stream_matmul(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-        const.data_ptr(), y.data_ptr(), M, N, K,
-        int(x.dtype == torch.bfloat16), int(int4),
-        int(out_dtype == torch.bfloat16), _cuda.stream_ptr(x.device))
-    _cuda.check(err, f"{fn} (M={M}, K={K}, N={N}, x {x.dtype})")
+        const.data_ptr(), y.data_ptr(), None if ws is None else
+        ws.data_ptr(), M, N, K, int(x.dtype == torch.bfloat16), int(int4),
+        int(out_dtype == torch.bfloat16), plan.bm, plan.splits, plan.kps,
+        _cuda.stream_ptr(x.device))
+    _cuda.check(err, f"{fn} (M={M}, K={K}, N={N}, x {x.dtype}, {plan})")
     return y
 
 

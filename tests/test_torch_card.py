@@ -324,12 +324,17 @@ def test_b4_matches_plain_bit_for_bit(card, shape):
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 46, 3), (33, 45, 17), (70, 118, 29),
-                                   (154, 768, 320), (200, 2880, 130)])
+                                   (154, 768, 320), (200, 2880, 130),
+                                   (2, 1280, 1280), (128, 23040, 1280),
+                                   (128, 11520, 1280), (2048, 5760, 640),
+                                   (8192, 320, 2560)])
 def test_stream_kernels_match_plain(card, kernel, x_dtype, out_dtype, shape):
     """B5 / B6 against their plain versions: the same bf16 x and weight
     products summed in another order, so 1e-3 relative to the largest
     output (f32 out); a bf16 output adds one bf16 rounding (1e-2). B6's
-    K is even (its pack folds K in half): an odd K is taken one up."""
+    K is even (its pack folds K in half): an odd K is taken one up. The
+    shapes reach both tiles of `stream_plan` (16 and 32 rows), with and
+    without a K split, and ragged M, K and N edges."""
     from qdiffusion_torch.ops.int4_matmul import int4_dense_stream, \
         int4_stream_matmul, int4_stream_plain
     from qdiffusion_torch.ops.int8_matmul import int8_dense_stream, \
@@ -355,6 +360,57 @@ def test_stream_kernels_match_plain(card, kernel, x_dtype, out_dtype, shape):
     ref = float(want.float().abs().max())
     assert err <= (1e-3 if out_dtype == torch.float32 else 1e-2) * ref, \
         (err, ref)
+
+
+def _stream_inputs(card, kernel, shape, seed=5):
+    from qdiffusion_torch.ops.int4_matmul import int4_dense_stream
+    from qdiffusion_torch.ops.int8_matmul import int8_dense_stream
+
+    M, K, N = shape
+    int4 = kernel == "B6"
+    g, w, consts = _int_operands(
+        card, M, K, N, seed=seed, w_dtype=torch.uint8 if int4 else torch.int8,
+        k_rows=K // 2 if int4 else K)
+    x = torch.randn((M, K), generator=g, device=card)
+    return (int4_dense_stream if int4 else int8_dense_stream), x, w, consts
+
+
+# (M, K, N): the 16-row tile split 5 ways, the 32-row tile split 7 ways
+# and unsplit (twice), ragged edges on a 4-way split
+_PLAN_SHAPES = [(2, 1280, 1280), (128, 11520, 1280), (2048, 640, 640),
+                (8192, 320, 2560), (70, 1182, 29)]
+
+
+@pytest.mark.parametrize("kernel", ["B5", "B6"])
+@pytest.mark.parametrize("shape", _PLAN_SHAPES)
+def test_stream_kernels_bit_equal_across_launches(card, kernel, shape):
+    """The K splits are added in a fixed order, with no atomics: two
+    launches on the same inputs give the same bits."""
+    fn, x, w, (scale, shift, c) = _stream_inputs(card, kernel, shape)
+    a = fn(x, w, scale, shift, bias=c)
+    b = fn(x, w, scale, shift, bias=c)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kernel", ["B5", "B6"])
+@pytest.mark.parametrize("shape", _PLAN_SHAPES)
+def test_stream_kernels_graph_replay_matches_eager(card, kernel, shape):
+    """A launch captured in a CUDA graph (its split workspace allocated
+    from the graph's pool) replays to the eager launch's bits."""
+    fn, x, w, (scale, shift, c) = _stream_inputs(card, kernel, shape)
+    eager = fn(x, w, scale, shift, bias=c)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(x, w, scale, shift, bias=c)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(x, w, scale, shift, bias=c)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 def test_int_wrappers_refuse_what_the_kernels_do_not_take(card):
@@ -450,3 +506,45 @@ def test_tiny_stream_step_card_matches_cpu(card, weight_bit):
     assert count.launches - before == per_step
     assert bool(torch.isfinite(got).all())
     assert _rel_l2(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("weight_bit", [8, 4])
+def test_tiny_stream_step_sites_match_cpu(card, weight_bit):
+    """Per site: every B5 / B6 call of a tiny stream step on the card
+    against the plain version on the CPU, fed the card's own inputs of
+    that site, so the error is the kernel's alone (1e-3 of the site's
+    largest output, the kernels' tolerance)."""
+    import qdiffusion_torch.ops.qlayers as ql
+    from qdiffusion_torch.calib.engine import init_weight_qstate
+    from qdiffusion_torch.deploy import make_quantized_step
+    from qdiffusion_torch.ops.int4_matmul import int4_dense_stream
+    from qdiffusion_torch.ops.int8_matmul import int8_dense_stream
+
+    cpu_m, card_m = _tiny_pair(card, weight_bit=weight_bit, split=True)
+    x, t = _inputs_nhwc()
+    q = init_weight_qstate(cpu_m)
+    qc = {s: {k: {n: v.to(card) for n, v in st.items()}
+              for k, st in sl.items()} for s, sl in q.items()}
+    errs = []
+
+    def spy(real):
+        def run(xs, w, scale, shift, bias=None, *, out_dtype=None):
+            got = real(xs, w, scale, shift, bias, out_dtype=out_dtype)
+            cpu = lambda a: a if a is None or isinstance(a, (int, float)) \
+                else a.cpu()
+            want = real(xs.cpu(), w.cpu(), cpu(scale), cpu(shift), cpu(bias),
+                        out_dtype=out_dtype)
+            errs.append(float((got.cpu() - want).abs().max())
+                        / float(want.abs().max()))
+            return got
+        return run
+
+    saved = ql.int4_dense_stream, ql.int8_dense_stream
+    ql.int4_dense_stream = spy(int4_dense_stream)
+    ql.int8_dense_stream = spy(int8_dense_stream)
+    try:
+        make_quantized_step(card_m, qc, engine="stream",
+                            stream_convs="all")(x.to(card), t.to(card))
+    finally:
+        ql.int4_dense_stream, ql.int8_dense_stream = saved
+    assert errs and max(errs) <= 1e-3, (len(errs), max(errs))
