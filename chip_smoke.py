@@ -26,14 +26,18 @@ every kernel of them against its plain PyTorch version:
                 (8, 1024, 8, 80), B3 (streaming_flash_attention) at
                 (4, 4096, 1, 512), bf16 and f32, with and without the
                 softmax/V quantizers, B2 at P's (2, 4096, 8, 40) in
-                bf16, and B2 at the SD stream call's (2, 4096, 8, 40) and
-                (2, 1024, 8, 80) in f32: error against the plain version,
-                kernel / plain / F.scaled_dot_product_attention time, the
-                bound (bytes, MMA
+                bf16, B2 at the SD stream call's (2, 4096, 8, 40) and
+                (2, 1024, 8, 80) and B3 at the stream decode's
+                (1, 4096, 1, 512) in f32: error against the plain version,
+                with the softmax quantizer also the share of quantized
+                probabilities that differ from the plain version's
+                (`bucket_flip_share`, at most 1e-3), kernel / plain /
+                F.scaled_dot_product_attention time, the bound (bytes, MMA
                 flops, exponentials) and the CUDA design that ran, from
-                the profiler's kernel names ("mma": flash_mma_kernel, which
-                every bf16 row at D <= 128 must show; "first":
-                flash_kernel, for f32 and D = 512). Every design check reads
+                the profiler's kernel names ("mma": flash_mma_kernel, for
+                bf16 at D <= 128; "tf32": flash_tf32_kernel, for f32 at
+                D <= 128; "wide": flash_wide_kernel, for D = 512; a row on
+                another design fails). Every design check reads
                 the names of one launch per case and shape made right after
                 the build, before any CUDA graph: after one, the profiler
                 here keeps only some kernels of a short window;
@@ -76,10 +80,11 @@ every kernel of them against its plain PyTorch version:
                 version on the CPU on a copy of that call's inputs: the
                 largest per-site error, 1e-3 of the site's largest output.)
   12. sd_stream_cli - `cli sample --task sd_v1 --weight-bit 4 --engine
-                stream --stream-convs --n 2 --batch 1` (PLMS-50, CFG 7.5;
+                stream --stream-convs --n 4 --batch 1` (PLMS-50, CFG 7.5;
                 B6 launches against 51 x the spy's per-call count per
-                batch) and the same at --weight-bit 8 --timesteps 5 (B5
-                on the streamed convs), with the streamed conv sites.
+                batch; img/s of batches 2-4) and the same at --weight-bit
+                8 --timesteps 5 --n 2 (B5 on the streamed convs), with the
+                streamed conv sites.
   P, the flash-epilogue probe (kernel flash_epilogue on B2's bf16 kernel):
   13. flash_epilogue - `python -m qdiffusion_torch.scripts.
                 bench_flash_epilogue` at (2, 4096, 8, 40) bf16 (its
@@ -90,7 +95,10 @@ every kernel of them against its plain PyTorch version:
                 most 1e-3 of the elements), the plain time, SDPA's time for
                 the two fp modes, and the bound (one exponential per score).
   (--profile adds torch.profiler breakdowns of a CIFAR fold step, an SD
-  fold UNet call, a CIFAR int8 step and an SD stream W4 UNet call.)
+  fold UNet call, a CIFAR int8 step and an SD stream W4 UNet call, the
+  last in three windows; by kind from each kernel's own interval, beside
+  the union of the intervals, which is less where kernels overlap on
+  several streams, as cuDNN's f32 convolutions do.)
 
 Each phase prints one JSON line (13: one per mode, after the entry
 point's own nine). Then come the `kernels` line, the raw
@@ -138,6 +146,7 @@ INT8_N = 2 * BATCH  # int8 CLI: two batches, the second one timed
 # card's f32 step to one bucket beyond its input's drift from the CPU's.
 REL_L2_INT8 = 6e-2
 STREAM_N, STREAM_BATCH = 2, 1  # SD stream CLI: batch-1 serving, CFG
+STREAM_N_W4 = 4  # W4 PLMS-50: batches 2-4 give repeated img/s in one run
 B4_REL = 1e-6  # B4 output against its plain version (the same f32 epilogue)
 STREAM_REL = 1e-3  # B5/B6: the same bf16 products, summed in another order
 P_SHAPE = (2, 4096, 8, 40)  # P's (B, T, H, D), bench_flash_epilogue.py:112
@@ -152,7 +161,8 @@ def ptxas_report(build: Path) -> dict:
     reports that ops/_cuda.py writes beside the libraries: {source:
     {kernel: [registers, spill stores, spill loads]}}, kernels by their
     template arguments (flash_mma_kernel<D/16, epilogue>,
-    stream_mma_kernel<BM, BN, WM, STAGES, MINB, x type, NH>)."""
+    flash_tf32_kernel<D class, sm_q>, flash_wide_kernel<type, D class,
+    epilogue>, stream_mma_kernel<BM, BN, WM, STAGES, MINB, x type, NH>)."""
     import re
 
     out = {}
@@ -161,10 +171,12 @@ def ptxas_report(build: Path) -> dict:
         for line in f.read_text().splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                k = re.search(r"(flash_mma_kernel|stream_mma_kernel)I(\w+?)"
+                k = re.search(r"(flash_mma_kernel|flash_tf32_kernel|"
+                              r"flash_wide_kernel|stream_mma_kernel)I(\w+?)"
                               r"EvN", m.group(1))
-                args = k and re.findall(r"Li(\d+)E|(f)(?=Li)|13__nv_(bf16)",
-                                        k.group(2).replace("bfloat", "bf"))
+                args = k and re.findall(
+                    r"L[ib](\d+)E|(f)(?=Li)|13__nv_(bf16)",
+                    k.group(2).replace("bfloat", "bf"))
                 name = (f"{k.group(1)}<{','.join(''.join(a) for a in args)}>"
                         if k else m.group(1)[-60:])
                 rows[name] = [None, None, None]
@@ -445,9 +457,10 @@ def phase_sim(task, out: Path, per_step: int, check: Checks) -> dict:
     return row
 
 
-def profile_breakdown(run, reps: int, trace: Path, what: str) -> dict:
+def profile_breakdown(run, reps: int, trace, what: str) -> dict:
     """torch.profiler over `reps` calls of `run`: device time by kernel
-    kind and the device's idle share against the unprofiled call time."""
+    kind and the device's idle share against the unprofiled call time;
+    the chrome trace goes to `trace` unless it is None."""
     from torch.profiler import ProfilerActivity, profile
 
     call_ms = _time_ms(run, reps=reps)  # unprofiled
@@ -458,7 +471,8 @@ def profile_breakdown(run, reps: int, trace: Path, what: str) -> dict:
             run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(str(trace))
+    if trace is not None:
+        prof.export_chrome_trace(str(trace))
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -469,11 +483,13 @@ def profile_breakdown(run, reps: int, trace: Path, what: str) -> dict:
     cuda = torch.autograd.DeviceType.CUDA
     kern = [e for e in prof.key_averages()
             if e.device_type == cuda and dev_us(e) > 0]
+    # each kernel once, by its own interval on the device
+    dev_events = [e for e in prof.events() if e.device_type == cuda
+                  and e.time_range.end > e.time_range.start]
     # busy time as the union of the kernels' intervals: kernels that run
-    # concurrently (cuDNN's f32 convolutions do) count once
+    # concurrently count once
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == cuda
-                   and e.time_range.end > e.time_range.start)
+                   for e in dev_events)
     busy_us, cur_s, cur_e = 0.0, None, None
     for a, b in spans:
         if cur_e is None or a > cur_e:
@@ -485,11 +501,12 @@ def profile_breakdown(run, reps: int, trace: Path, what: str) -> dict:
     kernel_sum_ms = sum(dev_us(e) for e in kern) / 1e3
     busy_ms = busy_us / 1e3 if spans else kernel_sum_ms
     kinds: dict = {}
-    for e in kern:
-        name = e.key.lower()
+    for e in dev_events:  # by kind, from the same events as the union
+        name = e.name.lower()
         kind = ("group_norm" if "group_norm" in name else
                 "flash_attention" if any(s in name for s in (
-                    "flash_kernel", "flash_mma_kernel")) else
+                    "flash_mma_kernel", "flash_tf32_kernel",
+                    "flash_wide_kernel")) else
                 "int matmul (B4-B6)" if any(s in name for s in (
                     "b4_kernel", "stream_mma_kernel",
                     "stream_reduce_kernel")) else
@@ -500,12 +517,21 @@ def profile_breakdown(run, reps: int, trace: Path, what: str) -> dict:
                                                    "cutlass", "nvjet")) else
                 "elementwise and other")
         ms, n = kinds.get(kind, (0.0, 0))
-        kinds[kind] = (ms + dev_us(e) / (1e3 * reps), n + e.count / reps)
+        kinds[kind] = (ms + (e.time_range.end - e.time_range.start)
+                       / (1e3 * reps), n + 1 / reps)
+    event_sum_ms = sum(e.time_range.end - e.time_range.start
+                       for e in dev_events) / 1e3
+    streams = sorted({getattr(e, "device_resource_id", None)
+                      for e in dev_events}, key=str)
     top = sorted(kern, key=dev_us, reverse=True)[:12]
     return {"what": what, "calls": reps, "call_ms": call_ms,
             "profiled_call_ms": wall_ms / reps,
             "device_busy_ms_per_call": busy_ms / reps,
             "kernel_time_sum_ms_per_call": kernel_sum_ms / reps,
+            # the by-kind sum: above the busy union only where kernels
+            # overlap on the device (more than one stream)
+            "event_sum_ms_per_call": event_sum_ms / reps,
+            "device_streams": [str(x) for x in streams],
             "idle_share": (1.0 - busy_ms / reps / call_ms) if busy_ms
             else None,
             "by_kind": {k: {"ms_per_call": ms, "kernels_per_call": n}
@@ -657,11 +683,23 @@ def _kernel_names(run, family: str, tries: int = 3):
     return out, names
 
 
+FLASH_DESIGNS = {"mma": "flash_mma_kernel", "tf32": "flash_tf32_kernel",
+                 "wide": "flash_wide_kernel"}
+
+
 def _flash_design(names) -> str:
-    """The flash design that kernel names show: "mma" (flash_mma_kernel),
-    "first" (flash_kernel) or None."""
-    return ("mma" if any("flash_mma_kernel" in n for n in names) else
-            "first" if any("flash_kernel" in n for n in names) else None)
+    """The flash design that kernel names show ("mma", "tf32" or "wide",
+    FLASH_DESIGNS), or None when they show none or more than one."""
+    seen = [d for d, k in FLASH_DESIGNS.items()
+            if any(k in n for n in names)]
+    return seen[0] if len(seen) == 1 else None
+
+
+def want_flash_design(dtype, d: int) -> str:
+    """The design qdt_flash_attention dispatches (dtype, head dim) to."""
+    if d > 128:
+        return "wide"
+    return "mma" if dtype == torch.bfloat16 else "tf32"
 
 
 def _stream_design(names, splits: int):
@@ -673,10 +711,11 @@ def _stream_design(names, splits: int):
     return "mma" if mma and reduce == (splits > 1) else None
 
 
-# (kernel, shape, sites per SD call, dtypes, quantizers on) of B2 / B3;
-# (2, 4096, 8, 40) is P's shape, on no SD fold site; in f32 it and
+# (kernel, shape, sites per SD call or decode, dtypes, quantizers on) of
+# B2 / B3; (2, 4096, 8, 40) is P's shape, on no SD fold site; in f32 it and
 # (2, 1024, 8, 80) are the 10 flash sites of one SD stream call (batch 2,
-# f32), where SDPA in f32 is timed as the yardstick
+# f32) and (1, 4096, 1, 512) the stream decode's B3, where SDPA in f32 is
+# timed as the yardstick
 _BOTH = (torch.bfloat16, torch.float32)
 ATTN_CASES = [
     ("flash_attention", (8, 4096, 8, 40), 5, _BOTH, (False, True)),
@@ -684,7 +723,9 @@ ATTN_CASES = [
     ("flash_streaming", (4, 4096, 1, 512), 1, _BOTH, (False, True)),
     ("flash_attention", P_SHAPE, 0, (torch.bfloat16,), (False,)),
     ("flash_attention", (2, 4096, 8, 40), 5, (torch.float32,), (False,)),
-    ("flash_attention", (2, 1024, 8, 80), 5, (torch.float32,), (False,))]
+    ("flash_attention", (2, 1024, 8, 80), 5, (torch.float32,), (False,)),
+    ("flash_streaming", (1, 4096, 1, 512), 1, (torch.float32,), (False,))]
+STREAM_ATTN = {(2, 4096, 8, 40), (2, 1024, 8, 80), (1, 4096, 1, 512)}
 
 
 def _stream_operands(kernel, M, K, N, gen):
@@ -747,8 +788,8 @@ def phase_attn_kernels(check: Checks, designs: dict) -> list:
     timed in CUDA graphs over inputs that outgrow the L2; B2 also at P's
     shape in bf16 and at the SD stream call's shapes in f32. `designs`:
     `probe_designs`' kernel names."""
-    from qdiffusion_torch.ops.flash_attention import flash_attention, \
-        flash_attention_plain
+    from qdiffusion_torch.ops.flash_attention import bucket_flip_share, \
+        flash_attention, flash_attention_plain
     from qdiffusion_torch.ops.flash_streaming import \
         streaming_flash_attention, streaming_flash_attention_plain
 
@@ -784,17 +825,24 @@ def phase_attn_kernels(check: Checks, designs: dict) -> list:
                     flip = float(sm_q[0]["delta"]) * float(v.abs().max())
                     tol = (f"5e-5 abs, at most 1e-3 of the elements one "
                            f"softmax bucket apart ({flip:.3g})")
-                    ok = err <= 5e-5 + flip and float(
-                        (diff > 5e-5).float().mean()) <= 1e-3
+                    beyond = float((diff > 5e-5).float().mean())
+                    ok = err <= 5e-5 + flip and beyond <= 1e-3
                 check(ok, f"{name} {shape} {dtype} quant={quant}: max abs "
                           f"err {err} over {tol}")
                 # the dispatch of qdt_flash_attention, as the profiler saw it
-                want_design = ("mma" if dtype == torch.bfloat16 and d <= 128
-                               else "first")
+                want_design = want_flash_design(dtype, d)
                 check(design == want_design,
                       f"{name} {shape} {dtype} quant={quant}: ran the "
                       f"{design} design, not {want_design}")
                 del got, want, diff
+                flips = None
+                if quant:  # p as it fed PV, against the plain version's
+                    flips = bucket_flip_share(fn, plain, q, k, scale=scale,
+                                              sm_q=sm_q)
+                    check(flips <= 1e-3,
+                          f"{name} {shape} {dtype}: {flips} of the quantized "
+                          "softmax probabilities differ from the plain "
+                          "version's (limit 1e-3)")
                 es = q.element_size()
                 sets = rotations(lambda: tuple(a.clone() for a in (q, k, v)),
                                  3 * q.numel() * es)
@@ -805,6 +853,9 @@ def phase_attn_kernels(check: Checks, designs: dict) -> list:
                     "quant": quant, "per_call": per_call,
                     "design": design,
                     "max_abs_err": err, "tolerance": tol, "ok": ok,
+                    "bucket_flip_share": flips,
+                    "share_beyond_5e-5": beyond if dtype == torch.float32
+                    and quant else None,
                     "ms": _graph_ms([lambda s=s: fn(*s, **kw)
                                      for s in sets], min_calls=10),
                     "plain_ms": _graph_ms([lambda s=s: plain(*s, **kw)
@@ -814,7 +865,7 @@ def phase_attn_kernels(check: Checks, designs: dict) -> list:
                         *(a.transpose(1, 2) for a in s), scale=scale)
                         for s in sets], min_calls=10)
                     if not quant and (dtype == torch.bfloat16
-                                      or shape[0] == 2) else None,
+                                      or shape in STREAM_ATTN) else None,
                     **attention_bound(shape, es),
                 }
                 del sets, q, k, v
@@ -1309,6 +1360,11 @@ def sd_stream_spy(task, work: Path, wbits: int, check: Checks,
         prof = profile_breakdown(
             run, 3, profile_to / "sd_stream_w4_call_trace.json",
             f"SD v1 stream W{wbits} f32 UNet call, batch 2 (CFG of batch 1)")
+        # two more windows: the busy time's spread within this run
+        prof["device_busy_ms_per_call_windows"] = [
+            prof["device_busy_ms_per_call"]] + [profile_breakdown(
+                run, 3, None, "")["device_busy_ms_per_call"]
+                for _ in range(2)]
         _emit({"phase": "sd_stream_profile", **prof})
     _emit({"phase": "sd_stream_spy", "per_call": len(res["shapes"]),
            "distinct_shapes": len(set(res["shapes"])),
@@ -1608,9 +1664,9 @@ def phase_sd_stream_cli(task, work: Path, spy: dict, st: dict,
                 "flash_streaming": streaming_flash_attention,
                 "int4_stream_matmul": int4_stream_matmul,
                 "int8_stream_matmul": int8_stream_matmul}
-    batches = STREAM_N // STREAM_BATCH
     out = {}
-    for wbits, steps in ((4, SD_STEPS), (8, 5)):
+    for wbits, steps, n in ((4, SD_STEPS, STREAM_N_W4), (8, 5, STREAM_N)):
+        batches = n // STREAM_BATCH
         s = st[wbits]
         calls = steps + 1  # PLMS evaluates the first step twice
         unet = {**s["unet_call"],
@@ -1629,14 +1685,14 @@ def phase_sd_stream_cli(task, work: Path, spy: dict, st: dict,
                         "--qstate", str(work / f"w{wbits}_qstate.npz"),
                         "--weight-bit", str(wbits), "--engine", "stream",
                         "--stream-convs", "--timesteps", str(steps),
-                        "--n", str(STREAM_N), "--batch", str(STREAM_BATCH),
+                        "--n", str(n), "--batch", str(STREAM_BATCH),
                         "--npz-out", str(work / f"sd_stream_w{wbits}.npz"),
                         "--device", "cuda"])
         launches = {k: f.launches for k, f in counters.items()}
         with np.load(res["path"]) as f:
             imgs = f["arr_0"]
         tag = f"sd stream W{wbits}"
-        check(imgs.shape == (STREAM_N, 512, 512, 3)
+        check(imgs.shape == (n, 512, 512, 3)
               and imgs.dtype == np.uint8, f"{tag} npz {imgs.shape}")
         check(res["nonfinite"] == 0, f"{tag}: {res['nonfinite']} non-finite")
         check(res["sampler"] == "plms" and res["guidance_scale"] == 7.5
@@ -1647,10 +1703,12 @@ def phase_sd_stream_cli(task, work: Path, spy: dict, st: dict,
         kernel = "int4_stream_matmul" if wbits == 4 else "int8_stream_matmul"
         check(launches[kernel] > 0, f"{tag}: {kernel} not launched")
         secs, dec_s = res["batch_seconds"], res["decode_seconds"]
-        row = {"phase": "sd_stream_cli", "weight_bit": wbits, "n": STREAM_N,
+        row = {"phase": "sd_stream_cli", "weight_bit": wbits, "n": n,
                "batch": STREAM_BATCH, "steps": steps,
                "batch_seconds": secs, "decode_seconds": dec_s,
                "img_per_s": STREAM_BATCH / secs[-1],
+               # every batch after the first (which builds and warms up)
+               "img_per_s_by_batch": [STREAM_BATCH / x for x in secs[1:]],
                "ms_per_unet_call": (secs[-1] - dec_s[-1]) / calls * 1e3,
                "unet_calls": res["model_calls"], "launches": launches,
                "expected_launches": want,
@@ -1908,7 +1966,16 @@ def main(argv=None) -> int:
         "bound_ms": max(ssum("bytes_ms"), ssum("ops_ms")),
         "bound_by": "bytes" if ssum("bytes_ms") >= ssum("ops_ms")
         else "operations",
+        "f32_fma_ms": ssum("f32_fma_ms"),
         "library_ms": ssum("library_ms")}
+    stream_dec = [r for r in attn if r["kernel"] == "flash_streaming"
+                  and tuple(r["shape"]) in STREAM_ATTN]
+    kernels[2]["f32_route"] = {
+        "per": "the VAE mid attention of one stream f32 decode at batch 1 "
+               "(1,4096,1,512); CUDA graph",
+        **{k: stream_dec[0][k] for k in (
+            "design", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "f32_fma_ms", "max_abs_err")}}
     for row, key in ((kernels[1], "flash_attention"),
                      (kernels[2], "flash_streaming")):
         row["launches_by_path"] = {

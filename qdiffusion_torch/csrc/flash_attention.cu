@@ -21,19 +21,25 @@
 //   otherwise:        p = e * (1/l); p = bf16(p) (bf16 inputs);
 //                     p = fq(p) (sm_q); o = bf16(p) . v
 // V arrives already fake-quantized (the wrappers hoist it, as the TPU
-// wrappers do). f32 inputs keep every product in f32 (plain FMA, no TF32).
-// P's modes replace the `otherwise` line by its own transforms of p
-// (`epilogue` below; the port's ops/flash_epilogue.py lists them).
+// wrappers do). f32 inputs keep f32 accuracy: every product is taken in
+// 3xTF32 (below), nothing is rounded to bf16. P's modes replace the
+// `otherwise` line by its own transforms of p (`epilogue` below; the port's
+// ops/flash_epilogue.py lists them).
 //
 // fq is the TPU kernels' `_fq` (flash_attention.py:61-84): it multiplies by
 // 1/delta, rounds half to even (rintf), and has three clip branches
 // (symmetric; nonneg and always_zero: upper clip only; otherwise [0, n-1]).
 //
-// Two designs share this file:
-//   flash_mma_kernel  bf16 inputs with D <= 128: every B2 site of the SD
-//                     fold path, B3 at D <= 128, and P (D <= 48);
-//   flash_kernel      f32 inputs (B2 on the stream engine's f32 path) and
-//                     D > 128 (B3 at the VAE's D = 512), redesigned later.
+// Three designs share this file, all mma.sync with the scores in registers
+// and a cp.async ring of K/V blocks; qdt_flash_attention picks by dtype and
+// head dim D (at most 512):
+//   flash_mma_kernel   bf16, D <= 128: every B2 site of the SD fold path,
+//                      B3 at D <= 128, and P (D <= 48);
+//   flash_tf32_kernel  f32, D <= 128: B2 on the stream engine's f32 path
+//                      and on the f32 sim path, B3 at D <= 128;
+//   flash_wide_kernel  128 < D <= 512, bf16 and f32: B3 at the VAE's
+//                      D = 512 (bf16 on the fold path, f32 on the stream
+//                      path), B2 at such D.
 //
 // flash_mma_kernel, the Hopper design. One block of 4 warps per (64 query
 // rows, batch*head); each warp owns 16 rows. Q is staged once through
@@ -68,66 +74,78 @@
 // once: about 0.26 ms at the dense bf16 peak, which mma.sync does not
 // reach). wgmma is left to a later redesign if the tensor cores set the pace.
 //
-// flash_kernel, the first design (simple and right first): one block of
-// 256 threads per (q-tile, batch*head). The q-tile stays in shared memory;
-// pass 1 streams K blocks and keeps the running (max, sum-exp) per row;
-// pass 2 streams K and V blocks again, forms p in shared memory and
-// accumulates the f32 output tile in shared memory. bf16 products use WMMA
-// 16x16x16 with f32 accumulation, f32 inputs plain FMA. At D = 512 the
-// q-tile shrinks to 32 rows so that the f32 output tile fits. Tiles come
-// from device memory in 16-byte loads where D and the pointers allow it
-// (D = 40, 80, 512 do). It pays two exponentials per score and round-trips
-// the score, p and output tiles through shared memory; at the VAE shape
-// (D = 512) the two QK^T passes and one PV on the tensor cores bound it.
+// flash_tf32_kernel, f32 at D <= 128: flash_mma_kernel's layout (4 warps x
+// 16 query rows, 64-key blocks in a two-stage cp.async ring, scores, p and
+// output in registers) on mma.sync.m16n8k8 TF32. TF32 alone keeps 11 bits,
+// so each f32 operand x is split into hi = tf32(x) and lo = tf32(x - hi)
+// and a product is lo.hi + hi.lo + hi.hi in f32 (3xTF32): about 2^-22 of
+// each product, near f32's own rounding. tf32() rounds as cvt.rna does, by
+// an integer add and mask (cvt.rna.tf32.f32 lowers to a longer sequence,
+// about a fifth more kernel time on an H100 80GB HBM3 by bench_flash's
+// `split_cvt` variant). Two layouts make
+// the fragments fit without shuffles: the contraction index of each 8-deep
+// step is read in pair order (A column t is depth 2t, column t + 4 is depth
+// 2t + 1, the same for K), so a lane loads its two values as one float2;
+// and the score C-fragment (keys 2t, 2t + 1 of a lane) is the PV A-fragment
+// under the same pair order of keys, with V's B-fragment read at rows 2t
+// and 2t + 1. Row strides are 8 or 24 (mod 32) words for Q and K (float2
+// reads) and 4 (mod 8) for V (column reads), so no read meets a bank
+// conflict. Q's hi and lo fragments stay in registers for D <= 80 and are
+// read again from shared memory per block above that. With f32 inputs and
+// no sm_q nothing is rounded between the exponential and PV, so
+// o = (e . v) * (1/l) does not depend on the shift m beyond f32 rounding:
+// one pass with FlashAttention-2's online rescale (o and l scaled by
+// exp(m_old - m_new) when the row max grows) serves B2 and B3 alike, one
+// exponential per score and K/V read once. With sm_q, p = e * (1/l) must
+// be exact before fq, so two passes as above. What bounds it: instruction
+// slots, shared by the three TF32 mma per product and the splits of every
+// K and V fragment, which each warp makes anew (bench_flash's variants on
+// an H100 80GB HBM3: one mma a product runs in 45 % of the time, no split
+// in 76 %).
+//
+// flash_wide_kernel, 128 < D <= 512 (D classes 256 and 512, zero-padded in
+// shared memory): no warp can hold 16 rows of output at D = 512 beside its
+// scores (64 query rows of f32 output are 128 KB), so the output is split
+// over warps along D. A block of 8 warps takes BM query rows: bf16 64 rows,
+// f32 32 rows (shared memory holds 32 f32 rows of Q at D = 512 beside two
+// K/V slots). For the scores, warp (row group g of 16 rows, split j) takes
+// its rows over the j-th part of each key block (BN = 64 keys bf16, 32
+// f32; bf16: 4 row groups x 2 splits, contracting over the whole D from Q
+// in shared memory; f32: 2 x 4, each warp contracting the whole key block
+// over a quarter of D with an accumulator per 8-deep step, the quarters
+// added in a fixed order through shared memory, so that each K fragment's
+// split serves four key tiles and the tensor cores' accumulation error
+// stays that of one step). It writes p (bf16 or f32) into a shared
+// (BM, BN) tile, and after one barrier each warp takes o[32 rows, a part of
+// D] += p . V, two 16-row tiles so that each V fragment serves two mma,
+// with its part of the output in registers (bf16: 128 f32 a thread at
+// D = 512; f32: 64). Steps stream one block each through a ring of two
+// slots: pass 1 reads K blocks and keeps each lane's online (max, sum-exp)
+// (the row max alone for B2 without sm_q); the warps' statistics meet
+// once, through shared memory, at the end of pass 1; pass 2 reads K and V
+// blocks in turn (scores and p of block j, then PV of block j), so one
+// block's PV overlaps the next block's copy. e = ex2(s * c - m') in one
+// FFMA from the raw score. bf16 products are m16n8k16 with ldmatrix, f32
+// products 3xTF32 as in flash_tf32_kernel. The function is kept as
+// flash_mma_kernel keeps it, two passes in every mode (B3's
+// bf16(e * (1/l)) needs the row's final max and sum; at D = 512 there is
+// one exponential per 512 MACs, so the second QK^T pass costs tensor work,
+// not MUFU time). What bounds it: shared-memory fragment reads (a warp
+// reads its Q rows and its keys at every block; bench_flash's variants on
+// an H100 80GB HBM3 that leave out the QK^T or the PV mma save only 6 % or
+// 1 %) and the L2 traffic of K twice and V once per BM query rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr float kNegBig = -1e30f;  // masked scores (flash_streaming.py:39)
-constexpr int kSmemMax = 232448;   // per-block limit on sm_90
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  const float* sm;  // device [delta, zero_point] of the softmax quantizer
-  int T, S, H, D, DP;
-  int bm, ld;  // q-tile rows, smem row stride of Q/KV
-  int vec;     // 1: rows load as 16-byte vectors
-  float scale;
-  int n_levels, symmetric, always_zero;
-  int off_q, off_kv, off_s, off_p, off_o, off_m, off_l;
-};
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-// key-block rows: a compile-time constant per input type; the score tile's
-// row stride is padded by 4 floats so that rows fall in other banks
-template <typename T>
-constexpr int kBN = std::is_same<T, bf16>::value ? 64 : 32;
-template <typename T>
-constexpr int kLS = kBN<T> + 4;
 
 __device__ __forceinline__ float fq(float x, float delta, float inv_delta,
                                     float zp, int n_levels, int symmetric,
@@ -143,228 +161,6 @@ __device__ __forceinline__ float fq(float x, float delta, float inv_delta,
     xq = fminf(fmaxf(xi, 0.f), (float)(n_levels - 1));
   }
   return always_zero ? xq * delta : (xq - zp) * delta;
-}
-
-// rows [0, rows) of one (b, h) slice of a (B, L, H, D) tensor into a
-// (rows, ld) shared tile, zero beyond L and beyond D
-template <typename T>
-__device__ void load_tile(T* dst, const T* src, int row0, int rows, int L,
-                          const Params& p) {
-  const size_t stride = (size_t)p.H * p.D;
-  if (p.vec) {  // D is a multiple of the vector and rows are aligned
-    constexpr int V = 16 / sizeof(T);
-    const int nv = p.DP / V;
-    for (int idx = threadIdx.x; idx < rows * nv; idx += kThreads) {
-      int r = idx / nv, d = (idx - r * nv) * V;
-      int t = row0 + r;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (t < L && d < p.D)
-        val = *reinterpret_cast<const uint4*>(src + (size_t)t * stride + d);
-      if constexpr (std::is_same<T, bf16>::value) {
-        *reinterpret_cast<uint4*>(dst + r * p.ld + d) = val;
-      } else {  // f32 rows have an odd stride: store lane by lane
-        const float* f = reinterpret_cast<const float*>(&val);
-        for (int i = 0; i < V; ++i) dst[r * p.ld + d + i] = f[i];
-      }
-    }
-    return;
-  }
-  for (int idx = threadIdx.x; idx < rows * p.DP; idx += kThreads) {
-    int r = idx / p.DP, d = idx - r * p.DP;
-    int t = row0 + r;
-    T val = from_f<T>(0.f);
-    if (t < L && d < p.D) val = src[(size_t)t * stride + d];
-    dst[r * p.ld + d] = val;
-  }
-}
-
-// Ss (bm, bn) f32, row stride kLS = Qs (bm, DP) . Ks (bn, DP)^T
-template <typename T>
-__device__ void qk_tile(const Params& p, const T* Qs, const T* Ks,
-                        float* Ss) {
-  constexpr int BN = kBN<T>, LS = kLS<T>;
-  const int warp = threadIdx.x / 32;
-  if constexpr (std::is_same<T, bf16>::value) {
-    const int tn_n = BN / 16, tiles = (p.bm / 16) * tn_n;
-    for (int t = warp; t < tiles; t += kWarps) {
-      int tm = t / tn_n, tn = t - tm * tn_n;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < p.DP; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, Qs + tm * 16 * p.ld + kk, p.ld);
-        wmma::load_matrix_sync(b, Ks + tn * 16 * p.ld + kk, p.ld);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(Ss + tm * 16 * LS + tn * 16, acc, LS,
-                              wmma::mem_row_major);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < p.bm * BN; idx += kThreads) {
-      int r = idx / BN, j = idx - r * BN;
-      const float* qr = Qs + r * p.ld;
-      const float* kr = Ks + j * p.ld;
-      float acc = 0.f;
-      for (int d = 0; d < p.D; ++d) acc = fmaf(qr[d], kr[d], acc);
-      Ss[r * LS + j] = acc;
-    }
-  }
-}
-
-// Os (bm, DP) f32 += Ps (bm, bn) . Vs (bn, DP)
-template <typename T>
-__device__ void pv_tile(const Params& p, const T* Ps, const T* Vs,
-                        float* Os) {
-  constexpr int BN = kBN<T>;
-  const int warp = threadIdx.x / 32;
-  if constexpr (std::is_same<T, bf16>::value) {
-    const int tn_n = p.DP / 16, tiles = (p.bm / 16) * tn_n;
-    for (int t = warp; t < tiles; t += kWarps) {
-      int tm = t / tn_n, tn = t - tm * tn_n;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      float* out = Os + tm * 16 * p.DP + tn * 16;
-      wmma::load_matrix_sync(acc, out, p.DP, wmma::mem_row_major);
-      for (int kk = 0; kk < BN; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, Ps + tm * 16 * BN + kk, BN);
-        wmma::load_matrix_sync(b, Vs + kk * p.ld + tn * 16, p.ld);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(out, acc, p.DP, wmma::mem_row_major);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < p.bm * p.DP; idx += kThreads) {
-      int r = idx / p.DP, d = idx - r * p.DP;
-      if (d >= p.D) continue;
-      const float* pr = Ps + r * BN;
-      float acc = Os[idx];
-      for (int j = 0; j < BN; ++j) acc = fmaf(pr[j], Vs[j * p.ld + d], acc);
-      Os[idx] = acc;
-    }
-  }
-}
-
-template <typename T, bool SMQ, bool NORM_AFTER>
-__global__ void __launch_bounds__(kThreads)
-    flash_kernel(const Params p) {
-  constexpr int BN = kBN<T>, LS = kLS<T>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + p.off_q);
-  T* KVs = reinterpret_cast<T*>(smem + p.off_kv);
-  float* Ss = reinterpret_cast<float*>(smem + p.off_s);
-  T* Ps = reinterpret_cast<T*>(smem + p.off_p);
-  float* Os = reinterpret_cast<float*>(smem + p.off_o);
-  float* Mr = reinterpret_cast<float*>(smem + p.off_m);
-  float* Lr = reinterpret_cast<float*>(smem + p.off_l);
-
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh - b * p.H;
-  const int t0 = blockIdx.x * p.bm;
-  const size_t hd = (size_t)h * p.D;
-  const T* qb = static_cast<const T*>(p.q) + (size_t)b * p.T * p.H * p.D + hd;
-  const T* kb = static_cast<const T*>(p.k) + (size_t)b * p.S * p.H * p.D + hd;
-  const T* vb = static_cast<const T*>(p.v) + (size_t)b * p.S * p.H * p.D + hd;
-  T* ob = static_cast<T*>(p.o) + (size_t)b * p.T * p.H * p.D + hd;
-  // pass 1 gives each row tpr neighbouring threads (a power of two that
-  // divides 32), each of them every tpr-th column of the key block
-  const int tpr = kThreads / p.bm;
-  const int row = threadIdx.x / tpr, part = threadIdx.x % tpr;
-
-  load_tile<T>(Qs, qb, t0, p.bm, p.T, p);
-  for (int r = threadIdx.x; r < p.bm; r += kThreads) {
-    Mr[r] = kNegBig;
-    Lr[r] = 0.f;
-  }
-  for (int idx = threadIdx.x; idx < p.bm * p.DP; idx += kThreads) Os[idx] = 0.f;
-  __syncthreads();
-
-  // pass 1: running (max, sum-exp) per row (flash_streaming.py:42-71)
-  for (int s0 = 0; s0 < p.S; s0 += BN) {
-    load_tile<T>(KVs, kb, s0, BN, p.S, p);
-    __syncthreads();
-    qk_tile<T>(p, Qs, KVs, Ss);
-    __syncthreads();
-    {
-      const float* sr = Ss + row * LS;
-      float mx = kNegBig;
-      for (int j = part; j < BN; j += tpr)
-        if (s0 + j < p.S) mx = fmaxf(mx, sr[j] * p.scale);
-      for (int o = tpr / 2; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = Mr[row];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int j = part; j < BN; j += tpr)
-        if (s0 + j < p.S) sum += expf(sr[j] * p.scale - m_new);
-      for (int o = tpr / 2; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (part == 0) {
-        Lr[row] = Lr[row] * expf(m_old - m_new) + sum;
-        Mr[row] = m_new;
-      }
-    }
-    __syncthreads();
-  }
-  for (int r = threadIdx.x; r < p.bm; r += kThreads) Lr[r] = 1.f / Lr[r];
-  float delta = 0.f, inv_delta = 0.f, zp = 0.f;
-  if constexpr (SMQ) {
-    delta = p.sm[0];
-    zp = p.sm[1];
-    inv_delta = 1.f / delta;
-  }
-  __syncthreads();
-
-  // pass 2: out += p . v over key blocks, p formed in shared memory
-  for (int s0 = 0; s0 < p.S; s0 += BN) {
-    load_tile<T>(KVs, kb, s0, BN, p.S, p);
-    __syncthreads();
-    qk_tile<T>(p, Qs, KVs, Ss);
-    __syncthreads();
-    load_tile<T>(KVs, vb, s0, BN, p.S, p);
-    for (int idx = threadIdx.x; idx < p.bm * BN; idx += kThreads) {
-      int r = idx / BN, j = idx - r * BN;
-      float e = s0 + j < p.S ? expf(Ss[r * LS + j] * p.scale - Mr[r]) : 0.f;
-      float pv;
-      if constexpr (NORM_AFTER) {
-        pv = e;  // flash_attention.py:117-124: normaliser after PV
-      } else {
-        pv = e * Lr[r];
-        if constexpr (std::is_same<T, bf16>::value)
-          pv = __bfloat162float(__float2bfloat16(pv));
-        if constexpr (SMQ)
-          pv = fq(pv, delta, inv_delta, zp, p.n_levels, p.symmetric,
-                  p.always_zero);
-      }
-      Ps[idx] = from_f<T>(pv);
-    }
-    __syncthreads();
-    pv_tile<T>(p, Ps, KVs, Os);
-    __syncthreads();
-  }
-
-  const size_t stride = (size_t)p.H * p.D;
-  for (int idx = threadIdx.x; idx < p.bm * p.DP; idx += kThreads) {
-    int r = idx / p.DP, d = idx - r * p.DP;
-    int t = t0 + r;
-    if (t >= p.T || d >= p.D) continue;
-    float val = Os[idx];
-    if constexpr (NORM_AFTER) val *= Lr[r];
-    ob[(size_t)t * stride + d] = from_f<T>(val);
-  }
-}
-
-int align128(int x) { return (x + 127) & ~127; }
-
-template <typename T, bool SMQ, bool NORM_AFTER>
-int launch(Params& p, int grid_x, int grid_y, int smem, cudaStream_t st) {
-  auto kern = flash_kernel<T, SMQ, NORM_AFTER>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(grid_x, grid_y), kThreads, smem, st>>>(p);
-  return (int)cudaGetLastError();
 }
 
 // -- flash_mma_kernel: bf16, D <= 128 ----------------------------------------
@@ -823,14 +619,879 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace mmad
 
+// -- shared by flash_tf32_kernel and flash_wide_kernel -----------------------
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  const float* sm;  // device [delta, zero_point] (sm_q only)
+  int T, S, H, D;
+  int vec;          // 1: rows copy as 16-byte cp.async chunks
+  float scale;
+  int n_levels, symmetric, always_zero;
+};
+
+template <typename T>
+__device__ __forceinline__ T zero_of() {
+  if constexpr (std::is_same<T, float>::value) {
+    return 0.f;
+  } else {
+    return __float2bfloat16(0.f);
+  }
+}
+
+// rows [row0, row0 + ROWS) of one (b, h) slice of a (B, L, H, D) tensor
+// into a (ROWS, LD) shared tile: 16-byte cp.async chunks (zero-filled past
+// L) when `vec`, else element copies. Columns past D are left as they are.
+// The chunks walk the padded width DP, a compile-time constant, so that a
+// chunk's row and column take no integer division.
+template <typename T, int ROWS, int LD, int DP, int NTHR>
+__device__ __forceinline__ void load_rows_x(T* dst, const T* src, int row0,
+                                            int L, const Args& p) {
+  constexpr int E = 16 / sizeof(T), NC = DP / E;
+  const size_t stride = (size_t)p.H * p.D;
+  if (p.vec) {
+    for (int idx = threadIdx.x; idx < ROWS * NC; idx += NTHR) {
+      const int r = idx / NC, c = idx - r * NC;
+      const int t = row0 + r;
+      const bool in = t < L;
+      if (c * E < p.D)
+        mmad::cp_async16(mmad::smem_u32(dst + r * LD + c * E),
+                         src + (in ? (size_t)t * stride + c * E : 0),
+                         in ? 16 : 0);
+    }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < ROWS * p.D; idx += NTHR) {
+    const int r = idx / p.D, d = idx - r * p.D;
+    const int t = row0 + r;
+    dst[r * LD + d] = t < L ? src[(size_t)t * stride + d] : zero_of<T>();
+  }
+}
+
+// tf32(x), rounded to nearest with ties away from zero as cvt.rna.tf32.f32
+// rounds finite x: half an ulp of the 10-bit mantissa added to the
+// magnitude, the 13 low bits cleared. Two integer ops; cvt.rna lowers to
+// a longer compare-and-select sequence on sm_90.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to about 2^-22 of |x|: hi = tf32(x), lo = tf32(x - hi)
+// (x - hi is exact in f32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c (16 x 8 f32) += a (16 x 8 tf32, row) . b (8 x 8 tf32, col)
+__device__ __forceinline__ void mma1688(float (&c)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b in 3xTF32, the small cross terms first; b = {hi0, hi1, lo0, lo1}
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&b)[4]) {
+  mma1688(c, al, b[0], b[1]);
+  mma1688(c, ah, b[2], b[3]);
+  mma1688(c, ah, b[0], b[1]);
+}
+
+// the same into a fresh accumulator, then added to c in f32: the tensor
+// cores' accumulation error stays that of one 8-deep step, and c's sum is
+// rounded to nearest
+__device__ __forceinline__ void mma3_add(float (&c)[4],
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         const uint32_t (&b)[4]) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3(t, ah, al, b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += t[e];
+}
+
+// The A-fragment (rows r0 + g, r0 + g + 8) of a row-major f32 tile at depth
+// k0, in pair order (column t is depth k0 + 2t, t + 4 is k0 + 2t + 1),
+// split into hi and lo
+template <int LD>
+__device__ __forceinline__ void load_a_tf32(uint32_t (&h)[4], uint32_t (&l)[4],
+                                            const float* tile, int r0, int k0,
+                                            int lane) {
+  const float* base = tile + (r0 + (lane >> 2)) * LD + k0 + 2 * (lane & 3);
+  const float2 x0 = *reinterpret_cast<const float2*>(base);
+  const float2 x1 = *reinterpret_cast<const float2*>(base + 8 * LD);
+  split_tf32(x0.x, h[0], l[0]);
+  split_tf32(x1.x, h[1], l[1]);
+  split_tf32(x0.y, h[2], l[2]);
+  split_tf32(x1.y, h[3], l[3]);
+}
+
+// The B-fragment of K^T at depth k0: column g is key row n0 + g of a
+// row-major tile, depth in pair order
+template <int LD>
+__device__ __forceinline__ void load_bk_tf32(uint32_t (&b)[4],
+                                             const float* tile, int n0,
+                                             int k0, int lane) {
+  const float2 x = *reinterpret_cast<const float2*>(
+      tile + (n0 + (lane >> 2)) * LD + k0 + 2 * (lane & 3));
+  split_tf32(x.x, b[0], b[2]);
+  split_tf32(x.y, b[1], b[3]);
+}
+
+// The B-fragment of V over keys k0.. in pair order (rows k0 + 2t and
+// k0 + 2t + 1), column n0 + g
+template <int LD>
+__device__ __forceinline__ void load_bv_tf32(uint32_t (&b)[4],
+                                             const float* tile, int n0,
+                                             int k0, int lane) {
+  const float* x = tile + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
+  split_tf32(x[0], b[0], b[2]);
+  split_tf32(x[LD], b[1], b[3]);
+}
+
+// B2's and B3's softmax value fed to PV, from pn = e * (1/l): fq under sm_q
+// (after the bf16 round trip for bf16 inputs, TPU flash_attention.py:126-129),
+// else pn (rounded to bf16 when packed, for bf16 inputs)
+template <int EPI, bool BF>
+__device__ __forceinline__ float b23_epilogue(float pn, float delta,
+                                              float inv_delta, float zp,
+                                              const Args& p) {
+  if constexpr (EPI == mmad::kSmq) {
+    if constexpr (BF) pn = __bfloat162float(__float2bfloat16(pn));
+    return fq(pn, delta, inv_delta, zp, p.n_levels, p.symmetric,
+              p.always_zero);
+  } else {
+    return pn;
+  }
+}
+
+// -- flash_tf32_kernel: f32, D <= 128 ----------------------------------------
+
+namespace tf32 {
+
+constexpr int kRows = 64;  // 4 warps x 16 query rows
+constexpr int kThreads = 128;
+constexpr int kKeys = 64;  // keys per K/V block
+constexpr int kStages = 2;
+
+// Q and K rows: float2 reads by 8 rows x 4 lanes want a stride of 8 or 24
+// (mod 32) words; V rows: column reads at rows 2t, 2t + 1 want 4 (mod 8)
+template <int DP>
+__host__ __device__ constexpr int ldk() {
+  return DP % 16 == 0 ? DP + 8 : DP;
+}
+template <int DP>
+__host__ __device__ constexpr int ldv() { return DP + 4; }
+template <int DP>
+__host__ __device__ constexpr int smem_bytes() {
+  return 4 * (kRows * ldk<DP>() + kStages * kKeys * (ldk<DP>() + ldv<DP>()));
+}
+
+// SMQ: two passes (pass 1 the online statistics, pass 2 p = fq(e * (1/l))
+// and PV); else one pass with the online rescale, o = (e . v) * (1/l)
+template <int DP, bool SMQ>
+__global__ void __launch_bounds__(kThreads)
+    flash_tf32_kernel(const Args p) {
+  constexpr int KD = DP / 8;  // 8-deep steps of QK^T, 8-wide output tiles
+  constexpr int LDK = ldk<DP>(), LDV = ldv<DP>();
+  constexpr int KT = kKeys * LDK, VT = kKeys * LDV;
+  constexpr bool kQReg = DP <= 80;  // Q's hi/lo fragments in registers
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // (kRows, LDK)
+  float* Ks = Qs + kRows * LDK;                    // [kStages][KT]
+  float* Vs = Ks + kStages * KT;                   // [kStages][VT]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int quad = lane & 3;
+  const int r0 = warp * 16;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int t0 = blockIdx.x * kRows;
+  const size_t hd = (size_t)h * p.D;
+  const float* qb = static_cast<const float*>(p.q) +
+                    (size_t)b * p.T * p.H * p.D + hd;
+  const float* kb = static_cast<const float*>(p.k) +
+                    (size_t)b * p.S * p.H * p.D + hd;
+  const float* vb = static_cast<const float*>(p.v) +
+                    (size_t)b * p.S * p.H * p.D + hd;
+  float* ob = static_cast<float*>(p.o) + (size_t)b * p.T * p.H * p.D + hd;
+
+  {  // zero every tile once: Q's pad columns D..DP then stay zero
+    constexpr int n16 = smem_bytes<DP>() / 16;
+    uint4* z = reinterpret_cast<uint4*>(smem_raw);
+    for (int i = threadIdx.x; i < n16; i += kThreads)
+      z[i] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+
+  const int nb = (p.S + kKeys - 1) / kKeys;
+  const int steps = SMQ ? 2 * nb : nb;
+  // SMQ: steps 0..nb-1 read K blocks (pass 1), nb..2nb-1 K and V (pass 2);
+  // else every step reads K and V
+  auto load_step = [&](int i) {
+    const int st = i % kStages;
+    const bool with_v = !SMQ || i >= nb;
+    const int s0 = (SMQ && i >= nb ? i - nb : i) * kKeys;
+    load_rows_x<float, kKeys, LDK, DP, kThreads>(Ks + st * KT, kb, s0, p.S, p);
+    if (with_v)
+      load_rows_x<float, kKeys, LDV, DP, kThreads>(Vs + st * VT, vb, s0, p.S,
+                                                   p);
+  };
+  load_rows_x<float, kRows, LDK, DP, kThreads>(Qs, qb, t0, p.T, p);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < steps) load_step(i);
+    mmad::cp_commit();
+  }
+
+  float delta = 0.f, inv_delta = 0.f, zp = 0.f;
+  if constexpr (SMQ) {
+    delta = p.sm[0];
+    zp = p.sm[1];
+    inv_delta = 1.f / delta;
+  }
+  const float c = p.scale * mmad::kLog2e;
+  // per lane: rows g = lane / 4 (r = 0) and g + 8 (r = 1) of the warp
+  float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f}, linv[2] = {0.f, 0.f};
+  uint32_t qh[kQReg ? KD : 1][4], ql[kQReg ? KD : 1][4];
+  float o[KD][4];
+#pragma unroll
+  for (int j = 0; j < KD; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  for (int i = 0; i < steps; ++i) {
+    if (i + kStages - 1 < steps) load_step(i + kStages - 1);
+    mmad::cp_commit();
+    mmad::cp_wait<kStages - 1>();  // step i's group has landed
+    __syncthreads();
+    if constexpr (kQReg) {
+      if (i == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk)
+          load_a_tf32<LDK>(qh[kk], ql[kk], Qs, r0, kk * 8, lane);
+      }
+    }
+    const int st = i % kStages;
+    const bool pass2 = !SMQ || i >= nb;
+    const int s0 = (SMQ && i >= nb ? i - nb : i) * kKeys;
+    const float* K = Ks + st * KT;
+
+    // s (16 x 64 per warp) = Q . K^T in 3xTF32
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ah[4], al[4];
+      if constexpr (!kQReg) load_a_tf32<LDK>(ah, al, Qs, r0, kk * 8, lane);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t bk[4];
+        load_bk_tf32<LDK>(bk, K, j * 8, kk * 8, lane);
+        if constexpr (kQReg) {
+          mma3(s[j], qh[kk], ql[kk], bk);
+        } else {
+          mma3(s[j], ah, al, bk);
+        }
+      }
+    }
+    // u = s * scale * log2 e in place of s, -inf past S (last block only)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= c;
+    if (s0 + kKeys > p.S) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (s0 + j * 8 + quad * 2 + (e & 1) >= p.S)
+            s[j][e] = mmad::kNegInf;
+    }
+    if (!pass2) {  // SMQ pass 1: this lane's online (max, sum-exp)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          sum += mmad::ex2(s[j][2 * r] - mx) + mmad::ex2(s[j][2 * r + 1] - mx);
+        l[r] = l[r] * mmad::ex2(m[r] - mx) + sum;
+        m[r] = mx;
+      }
+    } else {
+      if constexpr (SMQ) {
+        if (i == nb) {  // pass 1 done: merge the quad's lanes
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float mx = m[r];
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            float sum = l[r] * mmad::ex2(m[r] - mx);
+            sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+            sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+            linv[r] = 1.f / sum;
+            m[r] = mx;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            s[j][e] = fq(mmad::ex2(s[j][e] - m[r]) * linv[r], delta,
+                         inv_delta, zp, p.n_levels, p.symmetric,
+                         p.always_zero);
+          }
+      } else {  // one pass: rescale o and l when the row max grows
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = m[r];
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float alpha = mmad::ex2(m[r] - mx);
+          m[r] = mx;
+          l[r] *= alpha;
+#pragma unroll
+          for (int jd = 0; jd < KD; ++jd) {
+            o[jd][2 * r] *= alpha;
+            o[jd][2 * r + 1] *= alpha;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] = mmad::ex2(s[j][e] - m[e >> 1]);
+            l[e >> 1] += s[j][e];
+          }
+      }
+      // PV: the C-fragment of key tile kc, in pair order, is the
+      // A-fragment of key step kc
+      const float* V = Vs + st * VT;
+#pragma unroll
+      for (int kc = 0; kc < 8; ++kc) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[kc][0], ph[0], pl[0]);
+        split_tf32(s[kc][2], ph[1], pl[1]);
+        split_tf32(s[kc][1], ph[2], pl[2]);
+        split_tf32(s[kc][3], ph[3], pl[3]);
+#pragma unroll
+        for (int jd = 0; jd < KD; ++jd) {
+          uint32_t bv[4];
+          load_bv_tf32<LDV>(bv, V, jd * 8, kc * 8, lane);
+          mma3(o[jd], ph, pl, bv);
+        }
+      }
+    }
+    __syncthreads();  // the next step's loads refill this stage
+  }
+
+  if constexpr (!SMQ) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      linv[r] = 1.f / sum;
+    }
+  }
+  const size_t stride = (size_t)p.H * p.D;
+  const bool pairs = (p.D & 1) == 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = t0 + r0 + (lane >> 2) + 8 * r;
+    if (t >= p.T) continue;
+    float* orow = ob + (size_t)t * stride;
+#pragma unroll
+    for (int jd = 0; jd < KD; ++jd) {
+      const int d = jd * 8 + quad * 2;
+      float v0 = o[jd][2 * r], v1 = o[jd][2 * r + 1];
+      if constexpr (!SMQ) {
+        v0 *= linv[r];
+        v1 *= linv[r];
+      }
+      if (pairs && d + 1 < p.D) {
+        *reinterpret_cast<float2*>(orow + d) = make_float2(v0, v1);
+      } else {
+        if (d < p.D) orow[d] = v0;
+        if (d + 1 < p.D) orow[d + 1] = v1;
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_dp(const Args& a, bool smq, int B, int H, cudaStream_t st) {
+  constexpr int smem = smem_bytes<DP>();
+  auto kern = smq ? &flash_tf32_kernel<DP, true>
+                  : &flash_tf32_kernel<DP, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3((a.T + kRows - 1) / kRows, B * H), kThreads, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// the D class: the smallest of 32, 40, 64, 80, 128 that holds D (the SD
+// stream sites have D = 40 and 80, which need no padding at 8-deep steps)
+int launch(const Args& a, bool smq, int B, int H, cudaStream_t st) {
+  if (a.D <= 32) return launch_dp<32>(a, smq, B, H, st);
+  if (a.D <= 40) return launch_dp<40>(a, smq, B, H, st);
+  if (a.D <= 64) return launch_dp<64>(a, smq, B, H, st);
+  if (a.D <= 80) return launch_dp<80>(a, smq, B, H, st);
+  if (a.D <= 128) return launch_dp<128>(a, smq, B, H, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tf32
+
+// -- flash_wide_kernel: 128 < D <= 512, bf16 and f32 -------------------------
+
+namespace wide {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+
+template <typename T, int DP>
+struct Cfg;
+template <int DP>
+struct Cfg<bf16, DP> {  // 4 row groups x 2 splits; ldmatrix rows padded 16 B
+  static constexpr int BM = 64, BN = 64;
+  static constexpr int LDQ = DP + 8, LDV = DP + 8, LDP = BN + 8;
+  static constexpr int LDR = 0;  // no partial scores
+  typedef bf16 PT;  // p in shared memory
+};
+template <int DP>
+struct Cfg<float, DP> {  // 2 row groups x 4 splits; strides as tf32::
+  static constexpr int BM = 32, BN = 32;
+  static constexpr int LDQ = DP + 8, LDV = DP + 4, LDP = BN + 8;
+  static constexpr int LDR = BN + 8;  // partial scores, one tile a split
+  typedef float PT;
+};
+
+template <typename T, int DP>
+__host__ __device__ constexpr int slot_elems() {
+  return Cfg<T, DP>::BN *
+         (Cfg<T, DP>::LDQ > Cfg<T, DP>::LDV ? Cfg<T, DP>::LDQ
+                                            : Cfg<T, DP>::LDV);
+}
+template <typename T, int DP>
+__host__ __device__ constexpr int smem_bytes() {
+  using C = Cfg<T, DP>;
+  return (int)sizeof(T) * (C::BM * C::LDQ + 2 * slot_elems<T, DP>()) +
+         (int)sizeof(typename C::PT) * C::BM * C::LDP +
+         2 * kWarps * 16 * 4 +      // the warps' row statistics
+         kWarps * 16 * C::LDR * 4;  // f32: the splits' partial scores
+}
+
+template <typename T, int DP, int EPI>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_wide_kernel(const Args p) {
+  using C = Cfg<T, DP>;
+  typedef typename C::PT PT;
+  constexpr int BM = C::BM, BN = C::BN;
+  constexpr int LDQ = C::LDQ, LDV = C::LDV, LDP = C::LDP;
+  constexpr int RG = BM / 16, SPLIT = kWarps / RG;
+  constexpr int KW = BN / SPLIT, KT = KW / 8;  // a warp's keys, key tiles
+  // PV: a warp takes 32 rows (two 16-row tiles, so that each V fragment
+  // serves two mma) and one of PQ parts of D
+  constexpr int PQ = kWarps / (BM / 32);
+  constexpr int DW = DP / PQ, NT = DW / 8;  // its output columns, tiles
+  constexpr int SLOT = slot_elems<T, DP>();
+  constexpr bool kBf = std::is_same<T, bf16>::value;
+  constexpr bool kAfter = EPI == mmad::kPostNorm;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);           // (BM, LDQ)
+  T* Ring = Qs + BM * LDQ;                          // [2][SLOT]: K or V
+  PT* Ps = reinterpret_cast<PT*>(Ring + 2 * SLOT);  // (BM, LDP)
+  float* Mst = reinterpret_cast<float*>(Ps + BM * LDP);  // [SPLIT][BM]
+  float* Lst = Mst + SPLIT * BM;                         // [SPLIT][BM]
+  float* Sred = Lst + SPLIT * BM;  // f32: [SPLIT][BM][LDR] partial scores
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int quad = lane & 3, g = lane >> 2;
+  const int rg = warp % RG, sp = warp / RG;
+  const int r0 = rg * 16;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int t0 = blockIdx.x * BM;
+  const size_t hd = (size_t)h * p.D;
+  const T* qb = static_cast<const T*>(p.q) + (size_t)b * p.T * p.H * p.D + hd;
+  const T* kb = static_cast<const T*>(p.k) + (size_t)b * p.S * p.H * p.D + hd;
+  const T* vb = static_cast<const T*>(p.v) + (size_t)b * p.S * p.H * p.D + hd;
+  T* ob = static_cast<T*>(p.o) + (size_t)b * p.T * p.H * p.D + hd;
+
+  {  // zero every tile once: Q's pad columns D..DP then stay zero
+    constexpr int n16 = smem_bytes<T, DP>() / 16;
+    uint4* z = reinterpret_cast<uint4*>(smem_raw);
+    for (int i = threadIdx.x; i < n16; i += kThreads)
+      z[i] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+
+  // steps 0..nb-1: K blocks (pass 1); then K, V of block j at nb + 2j and
+  // nb + 2j + 1 (pass 2); step i uses ring slot i & 1
+  const int nb = (p.S + BN - 1) / BN;
+  const int steps = 3 * nb;
+  auto load_step = [&](int i) {
+    T* dst = Ring + (i & 1) * SLOT;
+    const int j = i < nb ? i : (i - nb) >> 1;
+    if (i < nb || ((i - nb) & 1) == 0)
+      load_rows_x<T, BN, LDQ, DP, kThreads>(dst, kb, j * BN, p.S, p);
+    else
+      load_rows_x<T, BN, LDV, DP, kThreads>(dst, vb, j * BN, p.S, p);
+  };
+  load_rows_x<T, BM, LDQ, DP, kThreads>(Qs, qb, t0, p.T, p);
+  load_step(0);
+  mmad::cp_commit();
+
+  float delta = 0.f, inv_delta = 0.f, zp = 0.f;
+  if constexpr (EPI == mmad::kSmq) {
+    delta = p.sm[0];
+    zp = p.sm[1];
+    inv_delta = 1.f / delta;
+  }
+  const float c = p.scale * mmad::kLog2e;
+  // per lane: rows r0 + g (r = 0) and r0 + g + 8 (r = 1)
+  float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f}, linv[2] = {0.f, 0.f};
+  const int pr0 = (warp / PQ) * 32, c0 = (warp % PQ) * DW;  // PV's part
+  float o[2][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][j][e] = 0.f;
+
+  for (int i = 0; i < steps; ++i) {
+    if (i + 1 < steps) load_step(i + 1);
+    mmad::cp_commit();
+    mmad::cp_wait<1>();  // step i's group has landed
+    __syncthreads();
+    const T* tile = Ring + (i & 1) * SLOT;
+    const bool pass2 = i >= nb;
+    const int s0 = (pass2 ? (i - nb) >> 1 : i) * BN;
+    if (!pass2 || ((i - nb) & 1) == 0) {
+      // s (16 x KW) = Q[r0.., :] . K[sp * KW.., :]^T over the whole D
+      // (raw: scale and shift are applied inside the exponent)
+      const int n0 = sp * KW;
+      float s[KT][4];
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      if constexpr (kBf) {
+#pragma unroll 4
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          uint32_t qa[4];
+          mmad::ldsm_x4(qa, mmad::smem_u32(Qs + (r0 + (lane & 15)) * LDQ +
+                                           kk * 16 + (lane >> 4) * 8));
+#pragma unroll
+          for (int j = 0; j < KT; j += 2) {
+            uint32_t kf[4];
+            mmad::ldsm_x4(kf, mmad::smem_u32(
+                                  tile + (n0 + j * 8 + (lane & 7) +
+                                          ((lane >> 4) << 3)) * LDQ +
+                                  kk * 16 + ((lane >> 3) & 1) * 8));
+            mmad::mma16816(s[j], qa, kf[0], kf[1]);
+            mmad::mma16816(s[j + 1], qa, kf[2], kf[3]);
+          }
+        }
+      } else {
+        // f32: each split takes the whole key block over its quarter of D
+        // (four independent accumulators, a fresh one per 8-deep step),
+        // then the quarters are added in split order through shared memory
+        constexpr int KTF = BN / 8, KQ = DP / 8 / SPLIT;
+        const float* Qf = reinterpret_cast<const float*>(Qs);
+        const float* Kf = reinterpret_cast<const float*>(tile);
+        float part[KTF][4];
+#pragma unroll
+        for (int j = 0; j < KTF; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll 4
+        for (int kk = sp * KQ; kk < (sp + 1) * KQ; ++kk) {
+          uint32_t ah[4], al[4];
+          load_a_tf32<LDQ>(ah, al, Qf, r0, kk * 8, lane);
+#pragma unroll
+          for (int j = 0; j < KTF; ++j) {
+            uint32_t bk[4];
+            load_bk_tf32<LDQ>(bk, Kf, j * 8, kk * 8, lane);
+            mma3_add(part[j], ah, al, bk);
+          }
+        }
+        float* red = Sred + (sp * BM + r0 + g) * C::LDR + quad * 2;
+#pragma unroll
+        for (int j = 0; j < KTF; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<float2*>(red + 8 * r * C::LDR + j * 8) =
+                make_float2(part[j][2 * r], part[j][2 * r + 1]);
+        __syncthreads();
+#pragma unroll
+        for (int q = 0; q < SPLIT; ++q)
+#pragma unroll
+          for (int j = 0; j < KT; ++j)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const float2 x = *reinterpret_cast<const float2*>(
+                  Sred + (q * BM + r0 + g + 8 * r) * C::LDR + n0 + j * 8 +
+                  quad * 2);
+              s[j][2 * r] += x.x;
+              s[j][2 * r + 1] += x.y;
+            }
+      }
+      // columns past S (TPU :101-103) exist in the last block only
+      const bool ragged = s0 + BN > p.S;
+      auto valid = [&](int j, int e) {
+        return !ragged || s0 + n0 + j * 8 + quad * 2 + (e & 1) < p.S;
+      };
+      // e = exp(s * scale - m) = ex2(s * c - m') in one FFMA, m' a row max
+      // of s * c; 0 past S
+      auto expo = [&](int j, int e, float mr) {
+        return valid(j, e) ? mmad::ex2(fmaf(s[j][e], c, -mr)) : 0.f;
+      };
+      if (!pass2) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = m[r];
+#pragma unroll
+          for (int j = 0; j < KT; ++j)
+#pragma unroll
+            for (int x = 0; x < 2; ++x)
+              if (valid(j, 2 * r + x)) mx = fmaxf(mx, s[j][2 * r + x] * c);
+          if constexpr (!kAfter) {  // this lane's online (max, sum-exp)
+            float sum = 0.f;
+#pragma unroll
+            for (int j = 0; j < KT; ++j)
+              sum += expo(j, 2 * r, mx) + expo(j, 2 * r + 1, mx);
+            l[r] = l[r] * mmad::ex2(m[r] - mx) + sum;
+          }
+          m[r] = mx;
+        }
+        if (i == nb - 1) {  // this warp's statistics, merged over the quad
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float mx = m[r];
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            float sum = l[r] * mmad::ex2(m[r] - mx);
+            sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+            sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+            if (quad == 0) {
+              Mst[sp * BM + r0 + g + 8 * r] = mx;
+              Lst[sp * BM + r0 + g + 8 * r] = sum;
+            }
+          }
+        }
+      } else {
+        if (i == nb) {  // the rows' statistics over every split
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = r0 + g + 8 * r;
+            float mx = kNegBig;
+#pragma unroll
+            for (int j = 0; j < SPLIT; ++j) mx = fmaxf(mx, Mst[j * BM + row]);
+            if constexpr (!kAfter) {
+              float sum = 0.f;
+#pragma unroll
+              for (int j = 0; j < SPLIT; ++j)
+                sum += Lst[j * BM + row] * mmad::ex2(Mst[j * BM + row] - mx);
+              linv[r] = 1.f / sum;
+            }
+            m[r] = mx;
+          }
+        }
+        // e, then p, into the shared p tile; e = 0 past S
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float v[2];
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const float e = expo(j, 2 * r + x, m[r]);
+              if constexpr (kAfter) {
+                l[r] += e;
+                v[x] = e;
+              } else {
+                v[x] = b23_epilogue<EPI, kBf>(e * linv[r], delta, inv_delta,
+                                              zp, p);
+              }
+            }
+            PT* dst = Ps + (r0 + g + 8 * r) * LDP + n0 + j * 8 + quad * 2;
+            if constexpr (kBf) {
+              *reinterpret_cast<uint32_t*>(dst) = mmad::pack_bf16(v[0], v[1]);
+            } else {
+              *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+            }
+          }
+        }
+      }
+    } else {
+      // o[pr0.., c0..] += p[pr0.., :] . V[:, c0..]
+      if constexpr (kBf) {
+#pragma unroll
+        for (int kc = 0; kc < BN / 16; ++kc) {
+          uint32_t pa[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            mmad::ldsm_x4(pa[mt], mmad::smem_u32(
+                                      Ps + (pr0 + mt * 16 + (lane & 15)) *
+                                               LDP +
+                                      kc * 16 + (lane >> 4) * 8));
+#pragma unroll
+          for (int jd = 0; jd < NT; jd += 2) {
+            uint32_t vf[4];
+            mmad::ldsm_x4_t(vf, mmad::smem_u32(
+                                    tile + (kc * 16 + (lane & 7) +
+                                            ((lane >> 3) & 1) * 8) * LDV +
+                                    c0 + jd * 8 + (lane >> 4) * 8));
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              mmad::mma16816(o[mt][jd], pa[mt], vf[0], vf[1]);
+              mmad::mma16816(o[mt][jd + 1], pa[mt], vf[2], vf[3]);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kc = 0; kc < BN / 8; ++kc) {
+          uint32_t ph[2][4], pl[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            load_a_tf32<LDP>(ph[mt], pl[mt],
+                             reinterpret_cast<const float*>(Ps),
+                             pr0 + mt * 16, kc * 8, lane);
+#pragma unroll
+          for (int jd = 0; jd < NT; ++jd) {
+            uint32_t bv[4];
+            load_bv_tf32<LDV>(bv, reinterpret_cast<const float*>(tile),
+                              c0 + jd * 8, kc * 8, lane);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) mma3(o[mt][jd], ph[mt], pl[mt], bv);
+          }
+        }
+      }
+    }
+    __syncthreads();  // p and the ring slot are free again
+  }
+
+  if constexpr (kAfter) {  // l of each row, summed over the splits
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (quad == 0) Lst[sp * BM + r0 + g + 8 * r] = sum;
+    }
+    __syncthreads();
+  }
+  const size_t stride = (size_t)p.H * p.D;
+  const bool pairs = (p.D & 1) == 0;
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {  // rows pr0 + 8x + g
+    const int mt = x >> 1, r = x & 1;
+    const int row = pr0 + 8 * x + g;
+    const int t = t0 + row;
+    if (t >= p.T) continue;
+    float inv = 1.f;
+    if constexpr (kAfter) {
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < SPLIT; ++j) sum += Lst[j * BM + row];
+      inv = 1.f / sum;
+    }
+    T* orow = ob + (size_t)t * stride;
+#pragma unroll
+    for (int jd = 0; jd < NT; ++jd) {
+      const int d = c0 + jd * 8 + quad * 2;
+      const float v0 = o[mt][jd][2 * r] * inv, v1 = o[mt][jd][2 * r + 1] * inv;
+      if (pairs && d + 1 < p.D) {
+        if constexpr (kBf) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          *reinterpret_cast<float2*>(orow + d) = make_float2(v0, v1);
+        }
+      } else {
+        if constexpr (kBf) {
+          if (d < p.D) orow[d] = __float2bfloat16(v0);
+          if (d + 1 < p.D) orow[d + 1] = __float2bfloat16(v1);
+        } else {
+          if (d < p.D) orow[d] = v0;
+          if (d + 1 < p.D) orow[d + 1] = v1;
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int DP, int EPI>
+int launch_cfg(const Args& a, int B, int H, cudaStream_t st) {
+  constexpr int smem = smem_bytes<T, DP>();
+  auto kern = flash_wide_kernel<T, DP, EPI>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int BM = Cfg<T, DP>::BM;
+  kern<<<dim3((a.T + BM - 1) / BM, B * H), kThreads, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int EPI>
+int launch_d(const Args& a, int B, int H, cudaStream_t st) {
+  if (a.D <= 256) return launch_cfg<T, 256, EPI>(a, B, H, st);
+  if (a.D <= 512) return launch_cfg<T, 512, EPI>(a, B, H, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// bf16: B2's and B3's three epilogues; f32: normalise after PV without sm_q
+// (nothing is rounded before PV, so B2's and B3's functions agree to f32
+// rounding), fq under it
+int launch(const Args& a, bool bf, int epi, int B, int H, cudaStream_t st) {
+  if (!bf) {
+    return epi == mmad::kSmq ? launch_d<float, mmad::kSmq>(a, B, H, st)
+                             : launch_d<float, mmad::kPostNorm>(a, B, H, st);
+  }
+  switch (epi) {
+    case mmad::kPostNorm: return launch_d<bf16, mmad::kPostNorm>(a, B, H, st);
+    case mmad::kCastRt: return launch_d<bf16, mmad::kCastRt>(a, B, H, st);
+    case mmad::kSmq: return launch_d<bf16, mmad::kSmq>(a, B, H, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace wide
+
 }  // namespace
 
 // q: (B, T, H, D), k, v: (B, S, H, D), o: (B, T, H, D), all contiguous,
-// bf16 (is_bf16 = 1) or f32. sm: device pointer to [delta, zero_point]
-// when sm_on, else ignored. norm_before = 1 selects B3's function (the
-// normaliser before PV even without sm_q), 0 B2's. bf16 with D <= 128 runs
-// flash_mma_kernel, the rest flash_kernel. Launches on `stream` and
-// returns the CUDA error of the launch (0 on success).
+// bf16 (is_bf16 = 1) or f32, D <= 512. sm: device pointer to [delta,
+// zero_point] when sm_on, else ignored. norm_before = 1 selects B3's
+// function (the normaliser before PV even without sm_q), 0 B2's. bf16 with
+// D <= 128 runs flash_mma_kernel, f32 with D <= 128 flash_tf32_kernel, the
+// rest flash_wide_kernel. Launches on `stream` and returns the CUDA error of
+// the launch (0 on success).
 extern "C" int qdt_flash_attention(const void* q, const void* k,
                                    const void* v, void* o, const float* sm,
                                    int B, int T, int S, int H, int D,
@@ -838,76 +1499,40 @@ extern "C" int qdt_flash_attention(const void* q, const void* k,
                                    int n_levels, int symmetric,
                                    int always_zero, int norm_before,
                                    void* stream) {
-  if (B <= 0 || T <= 0 || S <= 0 || H <= 0 || D <= 0 || B * H > 65535)
+  if (B <= 0 || T <= 0 || S <= 0 || H <= 0 || D <= 0 || D > 512 ||
+      B * H > 65535)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int epi = sm_on ? mmad::kSmq
+                        : (norm_before ? mmad::kCastRt : mmad::kPostNorm);
   if (is_bf16 && D <= 128) {
     mmad::Params mp = mmad::make_params(q, k, v, o, T, S, H, D, scale);
     mp.sm = sm;
     mp.n_levels = n_levels;
     mp.symmetric = symmetric;
     mp.always_zero = always_zero;
-    const int epi = sm_on ? mmad::kSmq
-                          : (norm_before ? mmad::kCastRt : mmad::kPostNorm);
-    return mmad::launch_epi(mp, epi, B, H, static_cast<cudaStream_t>(stream));
+    return mmad::launch_epi(mp, epi, B, H, st);
   }
-  Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
-  p.sm = sm;
-  p.T = T;
-  p.S = S;
-  p.H = H;
-  p.D = D;
-  p.DP = (D + 15) / 16 * 16;
-  p.scale = scale;
-  p.n_levels = n_levels;
-  p.symmetric = symmetric;
-  p.always_zero = always_zero;
-  const int es = is_bf16 ? 2 : 4;
-  const int bn = is_bf16 ? kBN<bf16> : kBN<float>;
-  const int ls = is_bf16 ? kLS<bf16> : kLS<float>;
-  if (is_bf16) {
-    p.bm = p.DP <= 160 ? 64 : 32;
-    p.ld = p.DP;  // WMMA: 16-element rows, 32-byte aligned tiles
-  } else {
-    p.bm = p.DP <= 160 ? 32 : 16;
-    p.ld = p.DP + 1;  // odd stride: K rows read by a warp miss no bank
-  }
-  // 16-byte loads: D a multiple of the vector, every row start aligned
-  const int vec_elems = 16 / es;
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.sm = sm;
+  a.T = T;
+  a.S = S;
+  a.H = H;
+  a.D = D;
+  a.scale = scale;
+  a.n_levels = n_levels;
+  a.symmetric = symmetric;
+  a.always_zero = always_zero;
+  // 16-byte chunks: D a multiple of the chunk and every row start aligned
+  const int chunk = is_bf16 ? 8 : 4;
   const uintptr_t addr = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
-  p.vec = D % vec_elems == 0 && (H * D) % vec_elems == 0 && addr % 16 == 0
-          && p.DP % vec_elems == 0;
-  int off = 0;
-  p.off_q = off;
-  off += align128(p.bm * p.ld * es);
-  p.off_kv = off;
-  off += align128(bn * p.ld * es);
-  p.off_s = off;
-  off += align128(p.bm * ls * 4);
-  p.off_p = off;
-  off += align128(p.bm * bn * es);
-  p.off_o = off;
-  off += align128(p.bm * p.DP * 4);
-  p.off_m = off;
-  off += align128(p.bm * 4);
-  p.off_l = off;
-  off += align128(p.bm * 4);
-  if (off > kSmemMax) return (int)cudaErrorInvalidValue;
-
-  const int gx = (T + p.bm - 1) / p.bm, gy = B * H;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool after = !norm_before && !sm_on;
-  if (is_bf16) {
-    if (sm_on) return launch<bf16, true, false>(p, gx, gy, off, st);
-    if (after) return launch<bf16, false, true>(p, gx, gy, off, st);
-    return launch<bf16, false, false>(p, gx, gy, off, st);
-  }
-  if (sm_on) return launch<float, true, false>(p, gx, gy, off, st);
-  if (after) return launch<float, false, true>(p, gx, gy, off, st);
-  return launch<float, false, false>(p, gx, gy, off, st);
+  a.vec = D % chunk == 0 && addr % 16 == 0;
+  if (!is_bf16 && D <= 128) return tf32::launch(a, sm_on, B, H, st);
+  return wide::launch(a, is_bf16, epi, B, H, st);
 }
 
 // P: q (B, T, H, D), k, v (B, S, H, D), o (B, T, H, D), bf16, contiguous,

@@ -68,17 +68,32 @@ def _target(source: str) -> Path:
     return BUILD / f"lib{Path(source).stem}_{digest}.so"
 
 
+def _nvcc_run(cu: Path, out: Path) -> subprocess.CompletedProcess:
+    """nvcc of one source into a shared library; stderr holds the ptxas
+    report of every kernel."""
+    return subprocess.run(
+        [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out), str(cu)],
+        capture_output=True, text=True)
+
+
+def _bind(path: Path, source: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES[source].items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _compile(source: str) -> Path:
     out = _target(source)
     if out.exists():
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           str(CSRC / source)]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    res = _nvcc_run(CSRC / source, tmp)
     if res.returncode:
         raise RuntimeError(f"nvcc failed for {source}:\n{res.stderr}")
     build_seconds[source] = time.perf_counter() - t0
@@ -99,13 +114,35 @@ def library(source: str) -> ctypes.CDLL:
     """The loaded library of `source`, built on first use."""
     lib = _libs.get(source)
     if lib is None:
-        lib = ctypes.CDLL(str(_compile(source)))
-        for name, argtypes in SIGNATURES[source].items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _libs[source] = lib
+        lib = _libs[source] = _bind(_compile(source), source)
     return lib
+
+
+def build_variants(source: str, variants: dict) -> dict:
+    """Copies of `source` with text replaced, for timing one part of a
+    kernel against another: {name: [(old, new), ...]} -> {name: loaded
+    library}, one nvcc each, started together, under _build/variants/.
+    Each old text must occur in the source."""
+    src = (CSRC / source).read_text()
+    out_dir = BUILD / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    stem = Path(source).stem
+
+    def build(name):
+        text = src
+        for old, new in variants[name]:
+            if old not in text:
+                raise RuntimeError(f"variant {name}: {old!r} not in source")
+            text = text.replace(old, new)
+        cu, so = out_dir / f"{stem}_{name}.cu", out_dir / f"{stem}_{name}.so"
+        cu.write_text(text)
+        res = _nvcc_run(cu, so)
+        if res.returncode:
+            raise RuntimeError(f"variant {name}:\n{res.stderr[-3000:]}")
+        return name, _bind(so, source)
+
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
+        return dict(pool.map(build, variants))
 
 
 def check(err: int, what: str):

@@ -20,11 +20,12 @@ holds one whole (tile_q, S) score tile in VMEM; shared memory cannot, so
 the CUDA kernel streams key blocks twice (row statistics, then p and PV),
 which gives the same normalized probabilities the quantizer needs.
 
-Which kernel serves which input: bf16 with D <= 128
-(every SD fold site) runs `flash_mma_kernel`, the Hopper design (score,
-p and output fragments in registers, one exponential per score without
-sm_q); f32 (the stream engine) and D > 128 run `flash_kernel`, the first
-design.
+Which kernel serves which input (head dims up to 512): bf16 with
+D <= 128 (every SD fold site) runs `flash_mma_kernel` (score, p and
+output fragments in registers, one exponential per score without sm_q);
+f32 with D <= 128 (the stream engine's and the f32 sim path's sites)
+`flash_tf32_kernel` (3xTF32 mma.sync, one pass without sm_q); D > 128 in
+either dtype `flash_wide_kernel` (the output split over 8 warps along D).
 
 `flash_supported` is the TPU cost model (`_pick_tile_q`, TPU :39-58 and
 :288-298) without its backend test: ops/attention.py uses it to pick B2
@@ -43,12 +44,14 @@ import torch
 
 from qdiffusion_torch.quant.affine import AffineQuantizerSpec, fake_quant
 
-__all__ = ["flash_attention", "flash_attention_plain", "flash_supported"]
+__all__ = ["bucket_flip_share", "flash_attention", "flash_attention_plain",
+           "flash_supported"]
 
 QPair = Optional[Tuple[dict, AffineQuantizerSpec]]
 
 _VMEM_BUDGET = 15 * 1024 * 1024  # the TPU kernel's scoped-VMEM budget
 _PLAIN_ROWS = 1024  # query rows per chunk of the plain version
+MAX_HEAD_DIM = 512  # csrc/flash_attention.cu's largest D class
 
 
 def _round_up(x: int, m: int) -> int:
@@ -160,11 +163,15 @@ def check_inputs(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
                              f"{q.dtype} on {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{fn}: q, k and v must be contiguous (B, L, H, D)")
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"{fn}: head dim {q.shape[-1]} > {MAX_HEAD_DIM}, "
+                         "the largest the kernels take")
 
 
 def launch(fn: str, q, k, v, *, scale: float, sm_q: QPair,
-           norm_before: bool) -> torch.Tensor:
-    """One launch of csrc/flash_attention.cu on q's current stream."""
+           norm_before: bool, lib=None) -> torch.Tensor:
+    """One launch of csrc/flash_attention.cu (or of `lib`, a library
+    built from a copy of it) on q's current stream."""
     from qdiffusion_torch.ops import _cuda
 
     B, T, H, D = q.shape
@@ -181,7 +188,7 @@ def launch(fn: str, q, k, v, *, scale: float, sm_q: QPair,
         n_levels, symmetric, always_zero = (spec.n_levels,
                                             int(spec.symmetric),
                                             int(spec.always_zero))
-    lib = _cuda.library("flash_attention.cu")
+    lib = lib or _cuda.library("flash_attention.cu")
     err = lib.qdt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), sm_ptr,
         B, T, S, H, D, float(scale), int(q.dtype == torch.bfloat16),
@@ -216,3 +223,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.launches_sm_q = 0
+
+
+def bucket_flip_share(fn, plain, q: torch.Tensor, k: torch.Tensor, *,
+                      scale: float, sm_q: QPair) -> float:
+    """Share of the quantized softmax probabilities p[b, t, h, s] (the
+    values that feed PV) in which `fn` and `plain`, two implementations of
+    one function (B2 or B3 with its softmax quantizer), differ.
+
+    p is read out through V: with V one-hot over a chunk of D keys
+    (V[s, d] = 1 where s = c0 + d), o[t, d] is p[t, c0 + d] times 1, so
+    ceil(S / D) calls give every p of the rows. bf16 outputs hold bf16(p)
+    exactly and are compared as they are; f32 outputs are compared in
+    buckets of delta (3xTF32 keeps p to about 2^-22, far inside half a
+    bucket)."""
+    B, T, H, D = q.shape
+    S = k.shape[1]
+    delta = float(sm_q[0]["delta"])
+    flips = 0
+    for c0 in range(0, S, D):
+        n = min(D, S - c0)
+        v = torch.zeros_like(k)
+        idx = torch.arange(n, device=k.device)
+        v[:, c0 + idx, :, idx] = 1
+        a = fn(q, k, v, scale=scale, sm_q=sm_q)[..., :n].float()
+        b = plain(q, k, v, scale=scale, sm_q=sm_q)[..., :n].float()
+        if q.dtype == torch.bfloat16:
+            flips += int((a != b).sum())
+        else:
+            flips += int((torch.round(a / delta)
+                          != torch.round(b / delta)).sum())
+    return flips / (B * T * H * S)

@@ -9,10 +9,15 @@ BEFORE PV even without sm_q (TPU :91-104), unlike B2.
 
 The TPU package sends a shape here when its resident-K/V kernel (B2)
 does not fit VMEM, which at the SD v1 shapes is the VAE decoder's
-single-head D = 512 attention over 4096 tokens. On an H100 that shape is
-bound by the tensor-core work of two QK^T passes and one PV; the CUDA
-kernel is the same two-pass design as B2 (a 32-row q-tile at D = 512, so
-that the f32 output tile fits in shared memory).
+single-head D = 512 attention over 4096 tokens. There the CUDA kernel is
+`flash_wide_kernel`: 8 warps share a block of query rows (64 in bf16, 32
+in f32), each warp scores its rows over a part of every key block and
+keeps a part of D of their output in registers, so that the output of a
+whole block fits; p meets PV through shared memory. It keeps two passes
+(the row's final max and sum before bf16(e * (1/l))); shared-memory
+fragment reads and the L2 traffic of K twice and V once bound it. f32 at
+D <= 128 runs `flash_tf32_kernel` in one pass, bf16 at D <= 128
+`flash_mma_kernel`, as for B2.
 
 On a CPU tensor the wrapper runs `streaming_flash_attention_plain`, the
 TPU kernels' block arithmetic in PyTorch; on a CUDA tensor it launches the

@@ -28,12 +28,10 @@ tree, on one card.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -115,39 +113,6 @@ def _wrapper_ms(todo: list) -> dict:
     return out
 
 
-def _build_variants(names) -> dict:
-    """{name: loaded library} of the VARIANTS of csrc/int_matmul.cu, one
-    nvcc each, started together, under _build/variants/."""
-    from qdiffusion_torch.ops import _cuda
-
-    src = (_cuda.CSRC / "int_matmul.cu").read_text()
-    out_dir = _cuda.BUILD / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-
-    def build(name):
-        text = src
-        for old, new in VARIANTS[name]:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: {old!r} not in source")
-            text = text.replace(old, new)
-        cu, so = out_dir / f"int_matmul_{name}.cu", out_dir / f"{name}.so"
-        cu.write_text(text)
-        res = subprocess.run(
-            [_cuda._nvcc(), "-gencode", _cuda.ARCH, "-std=c++17", "-O3",
-             "-shared", "-Xcompiler", "-fPIC", "-o", str(so), str(cu)],
-            capture_output=True, text=True)
-        if res.returncode:
-            raise RuntimeError(f"variant {name}:\n{res.stderr[-3000:]}")
-        lib = ctypes.CDLL(str(so))
-        lib.qdt_stream_matmul.argtypes = \
-            _cuda.SIGNATURES["int_matmul.cu"]["qdt_stream_matmul"]
-        lib.qdt_stream_matmul.restype = ctypes.c_int
-        return name, lib
-
-    with ThreadPoolExecutor(len(names)) as pool:
-        return dict(pool.map(build, names))
-
-
 def _entry_us(lib, kernel, shape, plan, sets, consts) -> float:
     """Device time (us) of the C entry of `lib` on `plan`, f32 in and out."""
     from qdiffusion_torch.ops import _cuda
@@ -212,7 +177,8 @@ def main(argv=None) -> int:
         if res.returncode:
             raise RuntimeError(f"baseline run failed:\n{res.stderr[-3000:]}")
         base = json.loads(res.stdout.strip().splitlines()[-1])
-    libs = _build_variants(list(VARIANTS)) if args.variants else {}
+    libs = _cuda.build_variants("int_matmul.cu", VARIANTS) \
+        if args.variants else {}
     totals = {}
     for kernel, shapes in kernels:
         int4 = kernel == "int4_stream_matmul"

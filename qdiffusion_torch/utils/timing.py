@@ -23,6 +23,7 @@ __all__ = ["events_ms", "graph_ms", "rotations", "bound", "attention_bound",
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor cores
 INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores
 # exponentials: 16 per clock per SM (the special-function unit), 132 SMs
 # at the 1.98 GHz maximum SM clock of the H100 SXM
@@ -85,14 +86,22 @@ def bound(nbytes: float, ops_ms: float) -> dict:
 
 def attention_bound(shape, element_size: int) -> dict:
     """The least time of softmax(q . k^T) . v with q, k, v of `shape`
-    (B, T, H, D): q, k, v read and o written once; QK^T and PV at the
-    tensor (bf16) or FMA (f32) rate; one exponential per score."""
+    (B, T, H, D): q, k, v read and o written once; one exponential per
+    score; QK^T and PV at the bf16 tensor rate, or for f32 inputs in
+    3xTF32 (three TF32 products per f32 product, f32-accurate) at the
+    TF32 tensor rate, which is faster than the f32 FMA rate
+    (`f32_fma_ms`, given beside it)."""
     b, t, h, d = shape
-    flops_ms = 4 * b * h * t * t * d / (
-        BF16_FLOPS if element_size == 2 else F32_FLOPS) * 1e3
+    flops = 4 * b * h * t * t * d
+    extra = {}
+    if element_size == 2:
+        flops_ms = flops / BF16_FLOPS * 1e3
+    else:
+        flops_ms = 3 * flops / TF32_FLOPS * 1e3
+        extra = {"f32_fma_ms": flops / F32_FLOPS * 1e3}
     exp_ms = b * h * t * t / EXP_PER_S * 1e3
     return {**bound(4 * b * t * h * d * element_size, max(flops_ms, exp_ms)),
-            "flops_ms": flops_ms, "exp_ms": exp_ms}
+            "flops_ms": flops_ms, "exp_ms": exp_ms, **extra}
 
 
 def nvidia_smi() -> str:

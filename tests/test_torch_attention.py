@@ -183,3 +183,61 @@ def test_cpu_wrappers_count_no_launch():
     flash_streaming.streaming_flash_attention(q, k, v, scale=0.3)
     assert flash_attention.flash_attention.launches == n2
     assert flash_streaming.streaming_flash_attention.launches == n3
+
+
+# the shapes of the wide and tf32 designs: D = 512 with a ragged S (B3's
+# VAE head dim), D = 80 (an SD stream site's head dim) in f32
+@pytest.mark.parametrize("kind", [None, "always_zero"])
+@pytest.mark.parametrize("kernel,dtype,shape", [
+    ("B3", "float32", (1, 16, 200, 1, 512)),
+    ("B3", "bfloat16", (1, 16, 200, 1, 512)),
+    ("B2", "float32", (2, 24, 200, 2, 80)),
+])
+def test_plain_matches_pallas_interpret_wide_and_f32(kernel, dtype, shape,
+                                                     kind):
+    """The plain versions that the card's wide and tf32 kernels are held
+    to, against the Pallas kernels in interpret mode, at their D."""
+    q, k, v = _qkv(dtype, 6, shape)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    jq, jk, jv = (jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v))
+    tsm, tvq = _pairs(kind, True)
+    jsm, jvq = _pairs(kind, False)
+    scale = shape[-1] ** -0.5
+    if kernel == "B2":
+        got = flash_attention.flash_attention_plain(tq, tk, tv, scale=scale,
+                                                    sm_q=tsm, v_q=tvq)
+        want = jax_flash(jq, jk, jv, scale=scale, sm_q=jsm, v_q=jvq,
+                         interpret=True)
+    else:
+        got = flash_streaming.streaming_flash_attention_plain(
+            tq, tk, tv, scale=scale, sm_q=tsm, v_q=tvq, block_k=128)
+        want = jax_stream(jq, jk, jv, scale=scale, sm_q=jsm, v_q=jvq,
+                          tile_q=8, block_k=128, interpret=True)
+    assert got.dtype == tdt and got.shape == q.shape
+    _assert_close(got.float().numpy(), np.asarray(want, np.float32), dtype,
+                  kind, v)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bucket_flip_share_reads_p_through_v(dtype):
+    """The flip count's readout: with V one-hot over a chunk of keys, the
+    plain version's output is its quantized softmax probabilities, so it
+    counts no flip against itself and counts every p that another
+    function moves by a bucket."""
+    tdt = getattr(torch, dtype)
+    q, k, _ = (torch.from_numpy(a).to(tdt)
+               for a in _qkv(dtype, 7, (2, 20, 37, 2, 8)))
+    q = (3 * q.float()).to(tdt)
+    sm_q, _ = _pairs("always_zero", True)
+    plain = flash_attention.flash_attention_plain
+    delta = float(sm_q[0]["delta"])
+    share = flash_attention.bucket_flip_share
+    assert share(plain, plain, q, k, scale=0.3, sm_q=sm_q) == 0.0
+
+    def shifted(q, k, v, *, scale, sm_q):  # p one bucket up at key 5
+        p = plain(q, k, v, scale=scale, sm_q=sm_q).float()
+        hit = (v[:, 5:6] == 1).float()  # (B, 1, H, D): the column of key 5
+        return (p + delta * hit).to(q.dtype)
+
+    assert share(shifted, plain, q, k, scale=0.3, sm_q=sm_q) == 1 / 37

@@ -156,11 +156,16 @@ def _sm_pairs(card, kind):
 @pytest.mark.parametrize("kernel", ["B2", "B3"])
 @pytest.mark.parametrize("shape", [(2, 24, 200, 2, 40), (1, 70, 131, 3, 80),
                                    (1, 40, 300, 1, 512), (1, 130, 77, 2, 64),
-                                   (2, 65, 129, 1, 17)])
+                                   (2, 65, 129, 1, 17), (2, 33, 97, 1, 256),
+                                   (1, 100, 70, 2, 512), (1, 37, 150, 1, 200),
+                                   (1, 66, 200, 1, 128)])
 def test_flash_kernels_match_plain(card, kernel, shape, dtype, kind):
     """Each CUDA kernel against its own plain version on the same CUDA
-    inputs (ragged T and S, D padded 40 -> 48; bf16 with D <= 128 runs
-    flash_mma_kernel, D = 17 through its element copies). f32: 5e-5 plus
+    inputs (ragged T and S; bf16 with D <= 128 runs flash_mma_kernel, D
+    padded 40 -> 48; f32 with D <= 128 flash_tf32_kernel, Q in registers
+    up to D = 80 and read from shared memory at 128; D > 128
+    flash_wide_kernel at its 256 and 512 classes, D = 200 padded; D = 17
+    through element copies). f32: 5e-5 plus
     at most 1e-3 of the elements one softmax bucket apart (delta * max|v|; sum
     order moves p across a rounding boundary; scores summed over up to 512
     products give 5e-5 absolute / 1e-4 relative, observed 2.2e-5 at D =
@@ -192,9 +197,77 @@ def test_flash_kernels_match_plain(card, kernel, shape, dtype, kind):
         assert float((diff > 5e-5).float().mean()) <= 1e-3
 
 
+# (B, T, S, H, D) of the three designs: tf32 with Q in registers and read
+# from shared memory, wide at both classes and both dtypes, mma
+_DESIGN_SHAPES = [(2, 100, 300, 2, 40), (1, 70, 131, 1, 128),
+                  (1, 90, 200, 1, 512), (2, 33, 97, 1, 256)]
+
+
+@pytest.mark.parametrize("sm", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["B2", "B3"])
+@pytest.mark.parametrize("shape", _DESIGN_SHAPES)
+def test_flash_kernels_bit_equal_across_launches_and_replay(card, kernel,
+                                                           shape, dtype, sm):
+    """No atomics and a fixed order of sums: two launches on the same
+    inputs, and a launch captured in a CUDA graph and replayed, give the
+    same bits."""
+    from qdiffusion_torch.ops.flash_attention import flash_attention
+    from qdiffusion_torch.ops.flash_streaming import \
+        streaming_flash_attention
+
+    fn = flash_attention if kernel == "B2" else streaming_flash_attention
+    q, k, v = _attn_inputs(card, shape, dtype, seed=3)
+    sm_q, v_q = _sm_pairs(card, "always_zero" if sm else None)
+    kw = dict(scale=0.3, sm_q=sm_q, v_q=v_q)
+    a = fn(q, k, v, **kw)
+    b = fn(q, k, v, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(q, k, v, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(q, k, v, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(out, a)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["B2", "B3"])
+@pytest.mark.parametrize("shape", [(2, 128, 300, 2, 40), (1, 64, 300, 1, 512)])
+def test_flash_kernels_bucket_flips(card, kernel, shape, dtype):
+    """The quantized softmax probabilities that feed PV, read out through
+    a one-hot V (`bucket_flip_share`), differ from the plain version's in
+    at most 1e-3 of the elements: the approximate exponential (ex2.approx)
+    and the kernels' sum orders move few p across a rounding boundary."""
+    from qdiffusion_torch.ops.flash_attention import bucket_flip_share, \
+        flash_attention, flash_attention_plain
+    from qdiffusion_torch.ops.flash_streaming import \
+        streaming_flash_attention, streaming_flash_attention_plain
+
+    fn, plain = (flash_attention, flash_attention_plain) if kernel == "B2" \
+        else (streaming_flash_attention, streaming_flash_attention_plain)
+    q, k, _ = _attn_inputs(card, shape, dtype, seed=5)
+    q = (2.5 * q.float()).to(dtype)  # a peaked softmax: many buckets
+    sm_q, _ = _sm_pairs(card, "always_zero")
+    assert bucket_flip_share(fn, plain, q, k, scale=shape[-1] ** -0.5,
+                             sm_q=sm_q) <= 1e-3
+
+
 def test_flash_wrappers_refuse_what_the_kernel_does_not_take(card):
+    from qdiffusion_torch.ops import _cuda
     from qdiffusion_torch.ops.flash_attention import flash_attention
 
+    big = torch.zeros((1, 8, 1, 520), device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(big, big, big, scale=1.0)
+    err = _cuda.library("flash_attention.cu").qdt_flash_attention(
+        big.data_ptr(), big.data_ptr(), big.data_ptr(), big.data_ptr(), None,
+        1, 8, 8, 1, 520, 1.0, 0, 0, 0, 0, 0, 0, _cuda.stream_ptr(big.device))
+    assert err != 0
     q, k, v = _attn_inputs(card, (1, 8, 8, 2, 16), torch.float32)
     with pytest.raises(ValueError, match="dtype"):
         flash_attention(q.half(), k.half(), v.half(), scale=1.0)
