@@ -8,12 +8,17 @@ together) into qdiffusion_torch/_build/, then drives the main paths of
 every ported slice through the entry points a user calls and holds
 every kernel of them against its plain PyTorch version:
 
+  First the GroupNorm shapes of a CIFAR step (batch 1, spy) and of an SD
+  UNet call and decode (phase 6's spy), then `designs`: every kernel
+  whose design a check reads is launched once under torch.profiler before
+  any CUDA graph exists in the process.
   CIFAR-10 (DDIMUNetConfig(), full width):
   1. kernels  - GroupNorm kernel B1 at every GroupNorm shape of the UNet
                 at batch 64, bf16 and f32 (error, kernel / plain /
                 F.group_norm device time in a CUDA graph over inputs that
                 outgrow the L2, CUDA events, median; the device-memory
-                bound);
+                bound; the plan's path, "rows" or "split", which the
+                profiler's kernel names must show);
   2. fold     - `cli sample --task cifar10 --engine fold --weight-bit 4
                 --dtype bfloat16 --n 64 --batch 64` (DDIM-100), the B1
                 launch count against 100 x the per-step count;
@@ -42,7 +47,7 @@ every kernel of them against its plain PyTorch version:
                 the build, before any CUDA graph: after one, the profiler
                 here keeps only some kernels of a short window;
   6. gn_sd    - B1 at every GroupNorm shape of one SD UNet call (batch 8,
-                CFG) and one VAE decode (batch 4), bf16;
+                CFG) and one VAE decode (batch 4), bf16 and f32, as in 1;
   7. sd_fold_cli - writes the UNet / VAE / CLIP npz files, a token-ids
                 npz and a W4 'mse' qstate, then `cli sample --task sd_v1
                 --engine fold --weight-bit 4 --dtype bfloat16 --n 8
@@ -56,23 +61,28 @@ every kernel of them against its plain PyTorch version:
                 at batch 8 and a 5-step PLMS through the CLI (f32), with
                 B2 launched with its softmax quantizer.
   The int8 and stream deployment engines (kernels B4, B5, B6):
-  10. int_kernels - B4 (int8_matmul) at every distinct (M, K, N) of one
-                CIFAR W4A8 int8 step at batch 64, B6 (int4_stream_matmul)
-                and B5 (int8_stream_matmul) at every distinct shape of one
-                SD stream UNet call at batch 2 (W4 and W8), all collected
-                by spies: error against the plain version (B4: the int32
-                product exactly, the output bit for bit; B5/B6: 1e-3 of the
+  10. int_kernels - B4 (int8_conv, the implicit-GEMM convolution) at
+                every distinct site of one CIFAR W4A8 int8 step at batch 64
+                (geometry, segments and the step's own bf16 input, from a
+                spy), B6 (int4_stream_matmul) and B5 (int8_stream_matmul)
+                at every distinct shape of one SD stream UNet call at
+                batch 2 (W4 and W8): error against the plain version (B4:
+                the plain composition on the card, the output bit for bit
+                and the int32 products exactly; B5/B6: 1e-3 of the
                 largest output), kernel / plain / library time in a CUDA
-                graph over inputs that outgrow the L2, and the bound; for
+                graph over inputs that outgrow the L2 (B4's library: the
+                torch._int_mm route with the quantize, pad and gather
+                passes; also cuDNN's bf16 convolution), and the bound; for
                 B5/B6 also the launch plan (tile rows, K splits), two
                 launches bit-equal, and the design from the profiler's
                 kernel names ("mma": stream_mma_kernel, with
                 stream_reduce_kernel exactly when K is split);
   11. int8_cli - `cli sample --task cifar10 --weight-bit 4 --quant-act
                 --split --engine int8 --n 128 --batch 64` (DDIM-100): the
-                B4 launches against 100 x the spy's per-step count per
-                batch; then one int8 step at batch 2: the card's bf16 and
-                f32 carriers against the CPU's f32 carrier (every int8
+                B4 launches against 100 x the spy's per-step site count
+                (113: one launch per site) per batch; then one int8 step
+                at batch 2: the card's bf16 and f32 carriers against the
+                CPU's f32 carrier (every int8
                 activation within one bucket beyond its input's drift)
                 and the card's f32 carrier against its sim step;
   (sd_stream_sites: before 10, one SD stream W4 and one W8 UNet call at
@@ -120,8 +130,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from qdiffusion_torch.utils.timing import BF16_FLOPS, F32_FLOPS, INT8_OPS, \
-    attention_bound, bound, nvidia_smi, rotations
+from qdiffusion_torch.utils.timing import BF16_FLOPS, F32_FLOPS, \
+    HBM_BYTES_PER_S, INT8_OPS, attention_bound, bound, nvidia_smi, rotations
 from qdiffusion_torch.utils.timing import events_ms as _events_ms
 from qdiffusion_torch.utils.timing import graph_ms as _graph_ms
 
@@ -147,7 +157,6 @@ INT8_N = 2 * BATCH  # int8 CLI: two batches, the second one timed
 REL_L2_INT8 = 6e-2
 STREAM_N, STREAM_BATCH = 2, 1  # SD stream CLI: batch-1 serving, CFG
 STREAM_N_W4 = 4  # W4 PLMS-50: batches 2-4 give repeated img/s in one run
-B4_REL = 1e-6  # B4 output against its plain version (the same f32 epilogue)
 STREAM_REL = 1e-3  # B5/B6: the same bf16 products, summed in another order
 P_SHAPE = (2, 4096, 8, 40)  # P's (B, T, H, D), bench_flash_epilogue.py:112
 
@@ -162,7 +171,8 @@ def ptxas_report(build: Path) -> dict:
     {kernel: [registers, spill stores, spill loads]}}, kernels by their
     template arguments (flash_mma_kernel<D/16, epilogue>,
     flash_tf32_kernel<D class, sm_q>, flash_wide_kernel<type, D class,
-    epilogue>, stream_mma_kernel<BM, BN, WM, STAGES, MINB, x type, NH>)."""
+    epilogue>, stream_mma_kernel<BM, BN, WM, STAGES, MINB, x type, NH>,
+    int8_conv_kernel<segments, MINB>, int8_quantize_kernel<x type>)."""
     import re
 
     out = {}
@@ -172,10 +182,11 @@ def ptxas_report(build: Path) -> dict:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 k = re.search(r"(flash_mma_kernel|flash_tf32_kernel|"
-                              r"flash_wide_kernel|stream_mma_kernel)I(\w+?)"
-                              r"EvN", m.group(1))
+                              r"flash_wide_kernel|stream_mma_kernel|"
+                              r"int8_conv_kernel|int8_quantize_kernel)"
+                              r"I(\w+?)EvN", m.group(1))
                 args = k and re.findall(
-                    r"L[ib](\d+)E|(f)(?=Li)|13__nv_(bf16)",
+                    r"L[ib](\d+)E|(f|a)(?=Li|E)|13__nv_(bf16)",
                     k.group(2).replace("bfloat", "bf"))
                 name = (f"{k.group(1)}<{','.join(''.join(a) for a in args)}>"
                         if k else m.group(1)[-60:])
@@ -278,11 +289,33 @@ def gn_shapes(model, task) -> list:
     return [shape for _, shape in spy.seen]
 
 
-def phase_kernels(shapes: list, check: Checks, *,
+def gn_plan(shape, dtype):
+    from qdiffusion_torch.ops.groupnorm import group_norm_plan
+
+    b, c = shape[0], shape[-1]
+    return group_norm_plan(b, int(np.prod(shape[1:-1])), c, 32,
+                           torch.tensor([], dtype=dtype).element_size(),
+                           torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
+
+
+def _gn_design(names):
+    """B1's path that kernel names show: "rows" (group_norm_rows_kernel),
+    "split" (group_norm_apply_kernel, after group_norm_stats_kernel), or
+    None when they show neither or both (the profiler may keep only a
+    window's last kernel, so the split path is read from its last one)."""
+    rows = any("group_norm_rows_kernel" in n for n in names)
+    split = any("group_norm_apply_kernel" in n for n in names)
+    return "rows" if rows and not split else "split" if split and not rows \
+        else None
+
+
+def phase_kernels(shapes: list, check: Checks, designs: dict, *,
                   dtypes=(torch.bfloat16, torch.float32),
                   phase: str = "kernel_shape", where: str = "") -> list:
     """B1 at each distinct full (B, ..., C) shape of `shapes` (a call-order
-    list, so a shape's multiplicity is its count per call)."""
+    list, so a shape's multiplicity is its count per call); the path that
+    ran, from `designs` (probe_designs' kernel names), must be the plan's."""
     from qdiffusion_torch.ops.groupnorm import fused_group_norm, \
         group_norm_plain
 
@@ -307,6 +340,13 @@ def phase_kernels(shapes: list, check: Checks, *,
             ok = bool(torch.allclose(y.float(), ref.float(), **TOL[dtype]))
             check(ok, f"group_norm {dtype} {shape}: max abs err "
                       f"{err} over {TOL[dtype]}")
+            plan = gn_plan(shape, dtype)
+            names = designs.get(("group_norm", tuple(shape), dtype))
+            design = _gn_design(names or [])
+            seen = [n for n in names or [] if "group" in n]
+            check(design == plan.path, f"group_norm {dtype} {shape}: "
+                  f"profiler kernels {seen} for the {plan.path} path" + (
+                      "" if names is not None else " (shape not probed)"))
             del y, ref
             nbytes = 2 * x.numel() * x.element_size() \
                 + 2 * c * scale.element_size()
@@ -317,7 +357,9 @@ def phase_kernels(shapes: list, check: Checks, *,
                 "phase": phase, "kernel": "group_norm", "where": where,
                 "dtype": str(dtype).replace("torch.", ""),
                 "shape": [shape[0], x.numel() // (shape[0] * c), c],
-                "per_call": per_call,
+                "per_call": per_call, "path": plan.path, "design": design,
+                "plan": {"chunks": plan.chunks, "groups": plan.groups,
+                         "splits": plan.splits, "block_c": plan.block_c},
                 "max_abs_err": err, "tolerance": TOL[dtype], "ok": ok,
                 "ms": _graph_ms([lambda a=a: fused_group_norm(a, scale, bias)
                                  for a in xs]),
@@ -330,6 +372,10 @@ def phase_kernels(shapes: list, check: Checks, *,
                                                               bias)),
                 **bound(nbytes, GN_FLOPS_PER_ELEM * x.numel() / F32_FLOPS
                         * 1e3),
+                # the split path reads the slab twice
+                "moved_bytes_ms": (nbytes + (x.numel() * x.element_size()
+                                             if plan.path == "split" else 0))
+                / HBM_BYTES_PER_S * 1e3,
             }
             del xs, x
             _emit(row)
@@ -508,7 +554,8 @@ def profile_breakdown(run, reps: int, trace, what: str) -> dict:
                     "flash_mma_kernel", "flash_tf32_kernel",
                     "flash_wide_kernel")) else
                 "int matmul (B4-B6)" if any(s in name for s in (
-                    "b4_kernel", "stream_mma_kernel",
+                    "int8_quantize_kernel", "int8_conv_kernel",
+                    "int8_conv_reduce_kernel", "stream_mma_kernel",
                     "stream_reduce_kernel")) else
                 "conv" if any(s in name for s in ("conv", "fprop",
                                                    "implicit")) else
@@ -744,12 +791,15 @@ def _stream_operands(kernel, M, K, N, gen):
     return x, w, scale, shift, bias
 
 
-def probe_designs() -> dict:
-    """Kernel names of one launch of every B2/B3 case of `ATTN_CASES` and
-    of B5/B6 at every shape of an SD stream call (the fixed lists of
+def probe_designs(gn_shapes) -> dict:
+    """Kernel names of one launch of every B2/B3 case of `ATTN_CASES`, of
+    B5/B6 at every shape of an SD stream call (the fixed lists of
     ops/int8_matmul.py, which the int_kernels phase holds its spies'
-    shapes to), each under torch.profiler before any CUDA graph exists
-    in the process: {(kernel, shape, dtype, quant) or (kernel, (M, K, N)): names}."""
+    shapes to) and of B1 at each of `gn_shapes` in bf16 and f32, each
+    under torch.profiler before any CUDA graph exists in the process:
+    {(kernel, shape, dtype, quant) or (kernel, (M, K, N)) or
+    ("group_norm", shape, dtype): names}."""
+    from qdiffusion_torch.ops.groupnorm import fused_group_norm
     from qdiffusion_torch.ops.flash_attention import flash_attention
     from qdiffusion_torch.ops.flash_streaming import \
         streaming_flash_attention
@@ -778,6 +828,13 @@ def probe_designs() -> dict:
             _, out[(kernel, (M, K, N))] = _kernel_names(
                 lambda: fns[kernel](x, w, scale, shift, bias=bias),
                 "stream_")
+    for shape in sorted(set(gn_shapes)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w = torch.ones(shape[-1], device="cuda", dtype=dtype)
+            _, out[("group_norm", shape, dtype)] = _kernel_names(
+                lambda: fused_group_norm(x, w, w), "group_norm")
+            del x
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return out
@@ -1197,13 +1254,36 @@ def phase_sd_profile(task, work: Path, out: Path) -> dict:
 
 # -- the int8 and stream deployment engines (B4, B5, B6) ---------------------
 
-def b4_spy() -> Spy:
-    """Every B4 call of the int8 engine (ops/int8.py's dispatch): (M, K,
-    N) of the product."""
-    import qdiffusion_torch.ops.int8 as int8
+class B4Sites(Spy):
+    """Every B4 site of the int8 engine (ops/int8.py's int8_conv2d and
+    int8_dense, which qlayers calls): its geometry key (kind, x shape,
+    strides and dtype, each segment's channels and filter, N, stride,
+    padding) in call order in `seen`, and for the first call of each key
+    a copy of its input and its packed weight in `inputs`."""
 
-    return Spy([(int8, "int8_dense_pallas")],
-               lambda a, kw: (a[0].shape[0], a[0].shape[1], a[1].shape[1]))
+    def __init__(self):
+        import qdiffusion_torch.ops.int8 as int8
+
+        self.inputs = {}
+        super().__init__([(int8, "int8_conv2d"), (int8, "int8_dense")],
+                         self._record)
+
+    def _record(self, a, kw):
+        x, packed = a[0], a[1]
+        conv = packed.segments[0].kshape != ()
+        stride = kw.get("stride", 1)
+        stride = (stride, stride) if isinstance(stride, int) else tuple(
+            stride)
+        key = ("conv" if conv else "dense", tuple(x.shape), tuple(x.stride()),
+               str(x.dtype).replace("torch.", ""),
+               tuple((s.in_ch, s.kshape) for s in packed.segments),
+               int(packed.segments[0].w_c.shape[1]),
+               stride if conv else None,
+               kw.get("padding", 0) if conv else None)
+        if key not in self.inputs:
+            self.inputs[key] = (x.clone(memory_format=torch.preserve_format),
+                                packed)
+        return key
 
 
 def stream_spy() -> Spy:
@@ -1228,7 +1308,9 @@ def _calls(seen, name) -> list:
 def int8_setup(task, out: Path, check: Checks) -> dict:
     """The CLI's W4A8 split-shortcut CIFAR model (seeded), its activation
     qstate from 8 inputs (saved for the CLI), and one int8 step at batch
-    64 under the B4 spy."""
+    64 under the B4 site spy: one B4 launch per site, every conv input
+    channels_last (the kernel reads it in place)."""
+    from qdiffusion_torch.ops.int8_conv import int8_conv
     from qdiffusion_torch.calib.engine import init_act_qstate, \
         init_weight_qstate
     from qdiffusion_torch.deploy import make_quantized_step, pack_model
@@ -1248,20 +1330,27 @@ def int8_setup(task, out: Path, check: Checks) -> dict:
     step = make_quantized_step(model, qstate, engine="int8")
     x = torch.randn((BATCH, 32, 32, 3), generator=gen, device="cuda")
     t = torch.full((BATCH,), 500.0, device="cuda")
-    with b4_spy() as spy:
+    before = int8_conv.launches
+    with B4Sites() as spy:
         eps = step(x, t)
     torch.cuda.synchronize()
+    launched = int8_conv.launches - before
     check(tuple(eps.shape) == (BATCH, 32, 32, 3)
           and bool(torch.isfinite(eps).all()), "int8 step output")
-    shapes = _calls(spy.seen, "int8_dense_pallas")
-    check(len(shapes) == segments, f"int8 step: {len(shapes)} B4 calls, "
-                                   f"expected {segments}")
+    sites = [k for _, k in spy.seen]
+    check(len(sites) == len(packed) == launched,
+          f"int8 step: {len(sites)} B4 sites, {launched} launches, "
+          f"{len(packed)} packed sites")
+    layouts = all(k[0] == "dense" or k[2][1] == 1 for k in sites)
+    check(layouts, "int8 step: a conv input that is not channels_last")
     row = {"phase": "int8_spy", "packed_sites": len(packed),
-           "b4_per_step": len(shapes), "distinct_shapes": len(set(shapes)),
+           "segments": segments, "b4_per_step": len(sites),
+           "b4_launches_per_step": launched,
+           "distinct_sites": len(spy.inputs), "channels_last": layouts,
            "step_ms": _time_ms(lambda: step(x, t), reps=3)}
     _emit(row)
     return {"model": model, "qstate": qstate, "step": step, "x": x, "t": t,
-            "shapes": shapes, "row": row}
+            "sites": sites, "inputs": spy.inputs, "row": row}
 
 
 class stream_site_check:
@@ -1381,63 +1470,146 @@ def _counts(shapes) -> dict:
     return out
 
 
-def _b4_case(M, K, N, gen, check) -> dict:
-    from qdiffusion_torch.ops.int8_matmul import int8_dense_pallas, \
-        int8_matmul_dequant, int8_matmul_plain
+def _identity_packed(packed):
+    """The same site with the epilogue y = float(acc): A = 1, Bc = C = 0,
+    no bias."""
+    import dataclasses
 
-    def ints(*shape):
-        return torch.randint(-128, 128, shape, generator=gen, device="cuda",
-                             dtype=torch.int8)
+    return dataclasses.replace(packed, bias=None, segments=[
+        dataclasses.replace(seg, scale_a=torch.ones_like(seg.scale_a),
+                            scale_s=torch.zeros_like(seg.scale_s),
+                            const=torch.zeros_like(seg.const))
+        for seg in packed.segments])
 
-    x, w = ints(M, K), ints(K, N)
-    a = 1e-4 + 1e-3 * torch.rand(N, generator=gen, device="cuda")
-    bc = 1e-3 * torch.randn(N, generator=gen, device="cuda")
-    c = torch.randn(N, generator=gen, device="cuda")
-    got = int8_dense_pallas(x, w, a, bc, c)
-    want = int8_matmul_plain(x, w, a, bc, c)
-    one, zero = torch.ones(N, device="cuda"), torch.zeros(N, device="cuda")
-    acc = int8_matmul_dequant(x, w, one, zero, zero)
-    exact = torch.matmul(x.double(), w.double())
+
+def _b4_site(key, x, packed, check) -> dict:
+    """B4 at one CIFAR int8 site on the input the int8 step gave it: the
+    kernel against the plain composition on the card (the output bit for
+    bit; the int32 products exactly, through an identity epilogue on the
+    f32 input), then the times in CUDA graphs over copies of x that
+    outgrow the L2: the kernel, the plain composition, the torch._int_mm
+    route (quantize, pad, gather, torch._int_mm on patches padded to its
+    multiples of 8, the epilogue) and cuDNN's bf16 convolution (or
+    F.linear) at the same shape, beside the bound of the fused function
+    and that of the TPU design's product over gathered patches."""
+    import torch.nn.functional as F
+
+    from qdiffusion_torch import nn
+    from qdiffusion_torch.ops import int8
+    from qdiffusion_torch.ops.int8_conv import conv_plan, stages
+
+    kind, _, _, _, segs, n, stride, padding = key
+    conv = kind == "conv"
+
+    def kernel(a, pk=packed):
+        return int8.int8_conv2d(a, pk, stride=stride, padding=padding) \
+            if conv else int8.int8_dense(a, pk)
+
+    def plain(a, pk=packed):
+        return int8.int8_conv2d_plain(a, pk, stride=stride, padding=padding) \
+            if conv else int8.int8_dense_plain(a, pk)
+
+    got, want = kernel(x), plain(x)
+    ident = _identity_packed(packed)
+    acc, acc_plain = kernel(x.float(), ident), plain(x.float(), ident)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    rel = err / max(float(want.abs().max()), 1e-30)
-    acc_exact = float(exact.abs().max()) < 2**24 and bool(
-        torch.equal(acc.double(), exact))
-    ok = acc_exact and rel <= B4_REL
-    check(ok, f"int8_matmul {(M, K, N)}: int32 product exact {acc_exact}, "
-              f"output rel err {rel} over {B4_REL}")
-    del got, want, acc, exact
-    # (x, w) sets cycled so that neither operand stays in the L2
-    sets = rotations(lambda: (x.clone(), w.clone()), M * K + K * N, cap=32)
-    # torch._int_mm wants M > 16 and K, N multiples of 8: zero-pad
-    Mp, Kp, Np = max(M, 17), -(-K // 8) * 8, -(-N // 8) * 8
-    pad = torch.nn.functional.pad
-    lib_sets = [(pad(xx, (0, Kp - K, 0, Mp - M)), pad(ww, (0, Np - N, 0,
-                                                          Kp - K)))
-                for xx, ww in sets]
-    ap, bp, cp = (pad(v, (0, Np - N)) for v in (a, bc, c))
+    bit_equal = got.shape == want.shape and bool(torch.equal(got, want))
+    err = float((got.float() - want.float()).abs().max())
+    rel = err / max(float(want.float().abs().max()), 1e-30)
+    exact = float(acc_plain.abs().max()) < 2**24 and bool(
+        torch.equal(acc, acc_plain))
+    ok = bit_equal and exact
+    check(ok, f"int8_conv {key}: output bit for bit {bit_equal} (max abs "
+              f"err {err}), int32 products exact {exact}")
+    m, k_tot = got.numel() // n, sum(c * int(np.prod(ks or (1,)))
+                                     for c, ks in segs)
+    plan = conv_plan(m, n, [stages(c * int(np.prod(ks or (1,))))
+                            for c, ks in segs],
+                     torch.cuda.get_device_properties(0)
+                     .multi_processor_count)
+    del got, want, acc, acc_plain
+    xb = x.numel() * x.element_size()
+    xs = rotations(lambda: x.clone(memory_format=torch.preserve_format), xb,
+                   cap=64)
+    # the torch._int_mm route: its operands padded to M > 16 and K, N
+    # multiples of 8
+    n8 = -(-n // 8) * 8
+    wpad = [F.pad(seg.w_c, (0, n8 - n, 0, -(-seg.w_c.shape[0] // 8) * 8
+                            - seg.w_c.shape[0])) for seg in packed.segments]
 
-    def library(xp, wp):
-        acc = torch._int_mm(xp, wp)
-        s = xp.float().sum(dim=-1, keepdim=True)
-        return acc.float() * ap + s * bp + cp
+    def int_mm_route(a):
+        y = None
+        axis = 1 if conv else -1
+        for seg, w8, xseg in zip(packed.segments, wpad,
+                                 int8._segments_of(a, packed, axis)):
+            q = int8.quantize_act(xseg, seg)
+            if conv:
+                pads = nn.pad_amounts(padding, seg.kshape, stride,
+                                      xseg.shape[2:])
+                q = nn.patches(q, seg.kshape, stride, pads, value=seg.a_pad)
+            p2 = q.reshape(-1, q.shape[-1])
+            p2 = F.pad(p2, (0, w8.shape[0] - p2.shape[1], 0,
+                            max(0, 17 - p2.shape[0])))
+            part = torch._int_mm(p2, w8)[:m, :n].float() * seg.scale_a \
+                + p2[:m].float().sum(dim=-1, keepdim=True) * seg.scale_s \
+                + seg.const
+            y = part if y is None else y + part
+        if packed.bias is not None:
+            y = y + packed.bias
+        return y.to(x.dtype)
 
-    try:
-        lib_ms = _graph_ms([lambda s=s: library(*s) for s in lib_sets])
-        lib_note = "torch._int_mm + torch epilogue"
-    except RuntimeError as e:  # a yardstick only: record why it is missing
-        lib_ms, lib_note = None, f"torch._int_mm refused: {str(e)[:120]}"
-    del lib_sets
-    return {
-        "max_abs_err": err, "rel_err": rel, "int32_exact": acc_exact,
-        "tolerance": f"int32 product exact, output {B4_REL} relative",
-        "ok": ok,
-        "ms": _graph_ms([lambda s=s: int8_dense_pallas(*s, a, bc, c)
-                         for s in sets]),
-        "plain_ms": _graph_ms([lambda s=s: int8_matmul_plain(*s, a, bc, c)
-                               for s in sets], min_calls=5),
-        "library_ms": lib_ms, "library": lib_note,
-        **bound(M * K + K * N + 4 * M * N, 2 * M * N * K / INT8_OPS * 1e3)}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    c_tot = sum(c for c, _ in segs)
+    kshape = segs[0][1] or ()
+    w_bf = torch.randn((n, c_tot, *kshape), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+
+    def cudnn(a):
+        a = a.to(torch.bfloat16)
+        return F.conv2d(a, w_bf, stride=stride, padding=padding) if conv \
+            else F.linear(a, w_bf)
+
+    row = {
+        "max_abs_err": err, "rel_err": rel,
+        "bit_equal": bit_equal, "int32_exact": exact,
+        "tolerance": "output bit for bit, int32 products exact", "ok": ok,
+        "M": m, "K": k_tot, "N": n,
+        "plan": {"splits": plan.splits, "sps": plan.sps,
+                 "grid": list(plan.grid)},
+        "ms": _graph_ms([lambda a=a: kernel(a) for a in xs]),
+        "plain_ms": _graph_ms([lambda a=a: plain(a) for a in xs],
+                              min_calls=5),
+        "library_ms": _graph_ms([lambda a=a: int_mm_route(a) for a in xs]),
+        "library": "quantize + pad + gather + torch._int_mm + epilogue",
+        "cudnn_bf16_ms": _graph_ms([lambda a=a: cudnn(a) for a in xs]),
+        # x read once, the int8 weights, the output written once
+        **bound(xb + n * k_tot + m * n * x.element_size(),
+                2 * m * n * k_tot / INT8_OPS * 1e3),
+        # the TPU design's product: int8 patches read, f32 output written
+        "patch_bound_ms": (m * k_tot + k_tot * n + 4 * m * n)
+        / HBM_BYTES_PER_S * 1e3}
+    del xs
+    return row
+
+
+def phase_b4_sites(setup: dict, check: Checks) -> list:
+    """B4 at every distinct site of one CIFAR W4A8 int8 step at batch 64
+    (the B4Sites spy's inputs); per_call is the site's count per step."""
+    counts = _counts(setup["sites"])
+    rows = []
+    for key, (x, packed) in setup["inputs"].items():
+        kind, shape, strides, dtype, segs, n, stride, padding = key
+        row = {"phase": "int_kernel", "kernel": "int8_conv",
+               "where": f"cifar10 W4A8 int8 step, batch {BATCH}",
+               "site": {"kind": kind, "x_shape": list(shape),
+                        "x_strides": list(strides), "dtype": dtype,
+                        "segments": [[c, list(k)] for c, k in segs], "N": n,
+                        "stride": stride, "padding": padding},
+               "per_call": counts[key], **_b4_site(key, x, packed, check)}
+        _emit(row)
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _stream_case(kernel, M, K, N, gen, check, names) -> dict:
@@ -1501,21 +1673,19 @@ def _stream_case(kernel, M, K, N, gen, check, names) -> dict:
     return row
 
 
-def phase_int_kernels(b4: list, b5: list, b6: list, check: Checks,
+def phase_int_kernels(b4: dict, b5: list, b6: list, check: Checks,
                       designs: dict) -> list:
-    """B4 at every distinct (M, K, N) of one CIFAR int8 step, B5 / B6 at
-    every distinct one of one SD stream UNet call (call-order lists, so a
-    shape's multiplicity is its count per step / call)."""
+    """B4 at every distinct site of one CIFAR int8 step (`b4`: int8_setup's
+    spy), B5 / B6 at every distinct (M, K, N) of one SD stream UNet call
+    (call-order lists, so a shape's multiplicity is its count per call)."""
+    rows = phase_b4_sites(b4, check)
     gen = torch.Generator(device="cuda").manual_seed(11)
-    rows = []
     for kernel, shapes, where in (
-            ("int8_matmul", b4, f"cifar10 W4A8 int8 step, batch {BATCH}"),
             ("int8_stream_matmul", b5, "sd_v1 stream W8 UNet call, batch 2"),
             ("int4_stream_matmul", b6, "sd_v1 stream W4 UNet call, batch 2")):
         for (M, K, N), per_call in _counts(shapes).items():
-            case = _b4_case(M, K, N, gen, check) if kernel == "int8_matmul" \
-                else _stream_case(kernel, M, K, N, gen, check,
-                                  designs.get((kernel, (M, K, N))))
+            case = _stream_case(kernel, M, K, N, gen, check,
+                                designs.get((kernel, (M, K, N))))
             row = {"phase": "int_kernel", "kernel": kernel, "where": where,
                    "shape": [M, K, N], "per_call": per_call, **case}
             _emit(row)
@@ -1527,20 +1697,20 @@ def phase_int_kernels(b4: list, b5: list, b6: list, check: Checks,
 def phase_int8_cli(task, out: Path, setup: dict, check: Checks) -> dict:
     from qdiffusion_torch import cli
     from qdiffusion_torch.ops.groupnorm import fused_group_norm
-    from qdiffusion_torch.ops.int8_matmul import int8_matmul_dequant
+    from qdiffusion_torch.ops.int8_conv import int8_conv
 
-    per_step = len(setup["shapes"])
+    per_step = len(setup["sites"])
     batches = INT8_N // BATCH
-    fused_group_norm.launches = int8_matmul_dequant.launches = 0
+    fused_group_norm.launches = int8_conv.launches = 0
     res = cli.main(["sample", "--task", "cifar10",
                     "--qstate", str(out / "w4a8_qstate.npz"),
                     "--weight-bit", "4", "--quant-act", "--split",
                     "--engine", "int8", "--n", str(INT8_N),
                     "--batch", str(BATCH), "--npz-out", str(out / "int8.npz"),
                     "--device", "cuda"])
-    launches = {"int8_matmul": int8_matmul_dequant.launches,
+    launches = {"int8_conv": int8_conv.launches,
                 "group_norm": fused_group_norm.launches}
-    want = {"int8_matmul": batches * STEPS * per_step,
+    want = {"int8_conv": batches * STEPS * per_step,
             "group_norm": batches * STEPS * 51}
     with np.load(res["path"]) as f:
         imgs = f["arr_0"]
@@ -1562,32 +1732,61 @@ def phase_int8_cli(task, out: Path, setup: dict, check: Checks) -> dict:
 
 
 class QuantRecorder:
-    """Records every activation quantization of the int8 engine, as (f32
-    input, int8 output, delta) on the CPU, for the length of a `with`."""
+    """Records the activation quantization of every segment of every int8
+    site (ops/int8.py's int8_conv2d / int8_dense), as (f32 input, int8
+    output, delta) on the CPU, for the length of a `with`. The int8 values
+    are quantize_act's on the input's own device: on the card that is the
+    plain version of what B4 computes in its load path. So on the card
+    each site's B4 output is also held bit for bit against the plain
+    composition (int8_conv2d_plain / int8_dense_plain) on the same input:
+    `plain_sites` counts the sites compared, `plain_equal` those equal."""
 
     def __enter__(self):
         import qdiffusion_torch.ops.int8 as int8
 
-        self.mod, self.real, self.rec = int8, int8.quantize_act, []
+        self.mod, self.rec = int8, []
+        self.plain_sites = self.plain_equal = 0
+        self.real = int8.int8_conv2d, int8.int8_dense
 
-        def spy(x, seg):
-            q = self.real(x, seg)
-            self.rec.append((x.float().cpu(), q.cpu(), float(seg.a_delta)))
-            return q
+        def record(x, packed, axis):
+            for seg, xs in zip(packed.segments,
+                               int8._segments_of(x, packed, axis)):
+                q = int8.quantize_act(xs, seg)
+                self.rec.append((xs.float().cpu(), q.cpu(),
+                                 float(seg.a_delta)))
 
-        int8.quantize_act = spy
+        def against_plain(y, plain):
+            if y.device.type == "cuda":
+                self.plain_sites += 1
+                self.plain_equal += bool(torch.equal(y, plain()))
+            return y
+
+        def conv(x, packed, **kw):
+            record(x, packed, 1)
+            return against_plain(self.real[0](x, packed, **kw),
+                                 lambda: int8.int8_conv2d_plain(x, packed,
+                                                                **kw))
+
+        def dense(x, packed, **kw):
+            record(x, packed, -1)
+            return against_plain(self.real[1](x, packed, **kw),
+                                 lambda: int8.int8_dense_plain(x, packed,
+                                                               **kw))
+
+        int8.int8_conv2d, int8.int8_dense = conv, dense
         return self
 
     def __exit__(self, *exc):
-        self.mod.quantize_act = self.real
+        self.mod.int8_conv2d, self.mod.int8_dense = self.real
 
 
 def phase_int8_card_vs_cpu(task, out: Path, setup: dict,
                            check: Checks) -> dict:
     """One int8 step at batch 2: the card's bf16 and f32 carriers against
     the CPU's f32 carrier, each int8 activation of the f32 steps held to
-    one bucket beyond its input's drift, and the card's f32 carrier
-    against the card's sim step."""
+    one bucket beyond its input's drift, each B4 call of both card steps
+    bit for bit against the plain composition on its own input, and the
+    card's f32 carrier against the card's sim step."""
     from qdiffusion_torch.deploy import make_quantized_step
     from qdiffusion_torch.utils.checkpoints import load_qstate
 
@@ -1604,8 +1803,9 @@ def phase_int8_card_vs_cpu(task, out: Path, setup: dict,
     del cpu_model
     model, q = setup["model"], setup["qstate"]
     xc, tc = x.cuda(), t.cuda()
-    eps = {"bf16": make_quantized_step(model, q, engine="int8")(xc, tc),
-           "sim": make_quantized_step(model, q, engine="sim")(xc, tc)}
+    with QuantRecorder() as rec_bf16:
+        eps = {"bf16": make_quantized_step(model, q, engine="int8")(xc, tc)}
+    eps["sim"] = make_quantized_step(model, q, engine="sim")(xc, tc)
     with QuantRecorder() as rec_card:
         eps["f32"] = make_quantized_step(
             model, q, engine="int8", carrier_dtype=torch.float32)(xc, tc)
@@ -1633,12 +1833,17 @@ def phase_int8_card_vs_cpu(task, out: Path, setup: dict,
            "quantized_sites": len(rec_card.rec),
            "sites_within_one_bucket": sites_ok,
            "first_site_exact": first_exact,
-           "int8_values_apart": flips, "int8_values": total}
+           "int8_values_apart": flips, "int8_values": total,
+           "b4_calls_vs_plain": {k: [r.plain_sites, r.plain_equal] for k, r
+                                 in (("bf16", rec_bf16), ("f32", rec_card))}}
     check(all(bool(torch.isfinite(e).all()) for e in eps.values()),
           "int8 batch-2 steps not finite")
     check(sites_ok and first_exact, f"int8 card vs CPU: {len(rec_card.rec)}"
           f" vs {len(rec_cpu.rec)} quantized sites, within one bucket "
           f"{sites_ok}, first site exact {first_exact}")
+    for key, (n, eq) in row["b4_calls_vs_plain"].items():
+        check(n > 0 and eq == n, f"int8 {key} step: {eq} of {n} B4 calls "
+                                 "bit-equal to the plain composition")
     for key in ("rel_l2_card_bf16_vs_cpu_f32", "rel_l2_card_f32_vs_cpu_f32",
                 "rel_l2_card_f32_vs_card_sim"):
         check(row[key] <= REL_L2_INT8, f"int8 {key}: {row[key]} over "
@@ -1727,6 +1932,8 @@ def phase_int8_profile(setup: dict, out: Path) -> dict:
     row = {"phase": "int8_profile", **profile_breakdown(
         lambda: step(x, t), 3, out / "int8_step_trace.json",
         f"CIFAR-10 W4A8 int8 step, batch {BATCH}")}
+    row["elementwise_kernels_per_call"] = row["by_kind"].get(
+        "elementwise and other", {}).get("kernels_per_call", 0)
     _emit(row)
     return row
 
@@ -1835,13 +2042,9 @@ def main(argv=None) -> int:
            "wall_seconds": time.perf_counter() - t0,
            "directory": str(_cuda.BUILD), "arch": _cuda.ARCH,
            "ptxas": ptxas})
-    # the designs that ran, from the profiler, before any CUDA graph
-    t0 = time.perf_counter()
-    designs = probe_designs()
-    _emit({"phase": "designs", "probed": len(designs),
-           "seconds": time.perf_counter() - t0})
-
-    # CIFAR-10, slice 1's path
+    # the GroupNorm shapes of the CIFAR step and of an SD UNet call and
+    # decode (spies, no CUDA graph), then the designs that ran, from the
+    # profiler, before any CUDA graph
     task = PRESETS["cifar10"]
     model = _seeded_model(task)
     n_params = sum(p.numel() for p in model.parameters())
@@ -1853,7 +2056,18 @@ def main(argv=None) -> int:
     check(len(shapes) == 51, f"{len(shapes)} GroupNorms per step, "
                              "expected 51")
     per_step = len(shapes)
-    rows = phase_kernels([(BATCH,) + s[1:] for s in shapes], check,
+    cifar_gn = [(BATCH,) + s[1:] for s in shapes]
+    sd = PRESETS["sd_v1"]
+    spy = phase_sd_spy(sd, check)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    designs = probe_designs(cifar_gn + spy["unet_gn_shapes"]
+                            + spy["decode_gn_shapes"])
+    _emit({"phase": "designs", "probed": len(designs),
+           "seconds": time.perf_counter() - t0})
+
+    # CIFAR-10, slice 1's path
+    rows = phase_kernels(cifar_gn, check, designs,
                          where="cifar10 UNet step")
     fold = phase_fold(task, out, per_step, check)
     check(fold["group_norm_launches"] > 0, "cifar fold: B1 not launched")
@@ -1862,15 +2076,11 @@ def main(argv=None) -> int:
     prof = phase_profile(task, out) if args.profile else None
     torch.cuda.empty_cache()
 
-    # Stable Diffusion v1, this slice's path
-    sd = PRESETS["sd_v1"]
-    spy = phase_sd_spy(sd, check)
-    gn_unet = phase_kernels(spy["unet_gn_shapes"], check,
-                            dtypes=(torch.bfloat16,), phase="gn_sd",
-                            where="sd_v1 UNet call")
-    gn_dec = phase_kernels(spy["decode_gn_shapes"], check,
-                           dtypes=(torch.bfloat16,), phase="gn_sd",
-                           where="sd_v1 VAE decode")
+    # Stable Diffusion v1, slice 2's path
+    gn_unet = phase_kernels(spy["unet_gn_shapes"], check, designs,
+                            phase="gn_sd", where="sd_v1 UNet call")
+    gn_dec = phase_kernels(spy["decode_gn_shapes"], check, designs,
+                           phase="gn_sd", where="sd_v1 VAE decode")
     attn = phase_attn_kernels(check, designs)
     files = phase_sd_files(sd, work, check)
     sd_fold = phase_sd_fold_cli(sd, work, spy, check)
@@ -1886,12 +2096,12 @@ def main(argv=None) -> int:
     st = {4: sd_stream_spy(sd, work, 4, check,
                            profile_to=out if args.profile else None),
           8: sd_stream_spy(sd, work, 8, check)}
-    ints = phase_int_kernels(i8["shapes"], st[8]["shapes"], st[4]["shapes"],
+    ints = phase_int_kernels(i8, st[8]["shapes"], st[4]["shapes"],
                              check, designs)
     int8_cli = phase_int8_cli(task, out, i8, check)
     int8_cpu = phase_int8_card_vs_cpu(task, out, i8, check)
     int8_prof = phase_int8_profile(i8, out) if args.profile else None
-    i8_row, b4_per_step = i8["row"], len(i8["shapes"])
+    i8_row, b4_per_step = i8["row"], len(i8["sites"])
     del i8
     torch.cuda.empty_cache()
     sd_stream = phase_sd_stream_cli(sd, work, spy, st, check)
@@ -1937,11 +2147,16 @@ def main(argv=None) -> int:
                   sd_launches["flash_streaming"],
                   f"the VAE mid attention of one bf16 decode at batch "
                   f"{SD_BATCH} (4,4096,1,512); CUDA graph"),
-        _int_row(ints, "int8_matmul",
-                 "qdiffusion_tpu/ops/pallas/int8_matmul.py:88",
-                 int8_cli["launches"]["int8_matmul"],
-                 f"the {b4_per_step} B4 calls of one CIFAR W4A8 int8 step "
-                 f"at batch {BATCH}; CUDA graph over (x, w) sets"),
+        {**_int_row(ints, "int8_conv",
+                    "qdiffusion_tpu/ops/pallas/int8_matmul.py:88",
+                    int8_cli["launches"]["int8_conv"],
+                    f"the {b4_per_step} B4 sites of one CIFAR W4A8 int8 "
+                    f"step at batch {BATCH} (one launch each); CUDA graph "
+                    "over copies of each site's input"),
+         "cudnn_bf16_ms": sum(r["cudnn_bf16_ms"] * r["per_call"]
+                              for r in ints if r["kernel"] == "int8_conv"),
+         "bit_equal_sites": sum(r["bit_equal"] and r["int32_exact"]
+                                for r in ints if r["kernel"] == "int8_conv")},
         _int_row(ints, "int8_stream_matmul",
                  "qdiffusion_tpu/ops/pallas/int8_matmul.py:216",
                  sd_stream[8]["launches"]["int8_stream_matmul"],

@@ -11,12 +11,20 @@
 //   B6  qdiffusion_tpu/ops/pallas/int4_matmul.py::int4_stream_matmul
 //       (pallas_call :129, `_kernel` :69-96; wrapper `int4_dense_stream`
 //       :170).
-// The wrappers are qdiffusion_torch/ops/int8_matmul.py (B4, B5) and
-// qdiffusion_torch/ops/int4_matmul.py (B6).
+// The wrappers are qdiffusion_torch/ops/int8_conv.py (B4; also reached by
+// ops/int8_matmul.py::int8_matmul_dequant), ops/int8_matmul.py (B5) and
+// ops/int4_matmul.py (B6).
 //
 // The function, per output element (m, n), with S(x)[m] the row sum of x:
-//   B4  acc = sum_k x_c[m,k] * w_c[k,n]   (int8 x int8, exact int32)
-//       y   = A[n]*float(acc) + Bc[n]*S(x_c)[m] + C[n]            f32 out
+//   B4  per input-channel segment s of a conv site (one, or two at the
+//       split 1x1 shortcut convs), on the site's NHWC activation x:
+//         x_c = clamp(rint(x / delta_s) + zp_s) - centre_s   (int8;
+//               a_pad_s outside the image)
+//         acc = sum_(i,j,c) x_c[b, ho*sh+i-pt, wo*sw+j-pl, c] * w_c[n]
+//               (int8 x int8, exact int32), S the same window's sum
+//         y_s = A_s[n]*float(acc) + Bc_s[n]*S + C_s[n]
+//       y = (y_0 + y_1) + bias[n], cast once to f32 or bf16; a dense
+//       layer is the case kh = kw = H = W = 1
 //   B5  acc = sum_k bf16(x)[m,k] * w_c[k,n]   (int8 w, exact in bf16)
 //       y   = scale[n]*acc + shift[n]*S(bf16(x))[m] + const[n]
 //   B6  as B5 with w the nibbles of a (K/2, N) uint8 pack: the low nibble
@@ -25,25 +33,30 @@
 // B5/B6 take f32 or bf16 x and round it to bf16 (nearest even) as they
 // build its MMA fragments (the TPU wrappers' x.astype(bfloat16),
 // int8_matmul.py:243, int4_matmul.py:160); products are bf16 MMAs with f32
-// sums; y is f32 or bf16. The epilogue uses round-to-nearest multiplies
+// sums; y is f32 or bf16. The epilogues use round-to-nearest multiplies
 // and adds in the plain versions' order ((a*b) + (c*d)) + e, with no FMA
 // contraction, so a B4 output equals its plain version bit for bit.
 //
-// What bounds it on an H100: at the CIFAR int8 shapes (M = 64*H*W up to
-// 65,536 patch rows, K up to 3,456) the int8 tensor-core rate; at the SD
-// stream shapes of batch 2 (M = 2 ... 8,192 rows) the weight bytes where
+// What bounds it on an H100: B4 at the CIFAR W4A8 sites (M = 64*H*W up to
+// 65,536 output pixels, K up to 4,608, N up to 512) reads the bf16
+// activation once, 33 MB of weights and writes the bf16 output once per
+// step: about 0.44 ms of device-memory time against 0.39 ms of int8
+// tensor work, so bytes, closely followed by the int8 tensor rate. The
+// TPU design multiplied patches gathered in device memory (9x the
+// activation at 3x3); this one pads and gathers in the load path, and
+// adds one int8 copy of the activation (written once, read from L2 by
+// the taps) to what crosses device memory. B5/B6 at the SD
+// stream shapes of batch 2 (M = 2 ... 8,192 rows): the weight bytes where
 // M is small (time-embedding linears at M = 2, context projections at
 // 154, the 8x8 convs at 128) and the x bytes and bf16 tensor-core rate
 // at M >= 2,048.
 //
-// B4 (simple and right first): one block of 256 threads per 64 x 128
-// output tile, 8 warps in a 2 x 4 grid of 32 x 32 warp tiles. The TPU's
-// sequential K grid axis becomes a loop inside the block: each step
-// stages one K slice of x and w in shared memory and runs WMMA on it
-// (signed char fragments, int accumulator, m16n16k16). The int8 tiles sit
-// in shared memory as 16 x 16 blocks so that every fragment starts on a
-// 256-byte boundary. Each block sums its own x rows for S(x) while
-// staging them, and the epilogue applies the per-column affine.
+// B4 (Hopper design, see the note at the B4 section): a quantize pass
+// that writes the activation once as int8 NHWC, then an implicit GEMM
+// over it with the pad value and the tap gather in its cp.async load
+// path, mma.sync m16n8k32 int8 with int32 sums, both segments' epilogues
+// fused, K split by a host plan (ops/int8_conv.py::conv_plan) where the
+// output tiles alone leave SMs idle.
 //
 // B5/B6 (Hopper design, see the note at stream_mma_kernel): a host-side
 // plan (ops/int8_matmul.py::stream_plan) picks a 16 x 128 or 32 x 128
@@ -55,144 +68,15 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int BM = 64, BN = 128;  // B4: block tile
-constexpr int BK8 = 64;           // B4: K per stage (4 WMMA k-steps)
-
-struct Params {  // B4
-  const void* x;       // (M, K) int8
-  const void* w;       // (K, N) int8
-  const float* scale;  // (N,) A
-  const float* shift;  // (N,) Bc
-  const float* cnst;   // (N,) C
-  void* y;             // (M, N) f32, or bf16 when y_bf16
-  int M, N, K;         // K: columns of x
-  int kw;              // rows of w: K
-  int x_vec, w_vec;    // 16-byte loads allowed (strides and pointers)
-  int y_bf16;
-};
-
 __device__ __forceinline__ float affine(float acc, float s, float b,
                                         float sum, float c) {
   return __fadd_rn(__fadd_rn(__fmul_rn(acc, s), __fmul_rn(sum, b)), c);
-}
-
-__device__ __forceinline__ void store_y(const Params& p, int m, int n,
-                                        float v) {
-  const size_t i = (size_t)m * p.N + n;
-  if (p.y_bf16)
-    static_cast<bf16*>(p.y)[i] = __float2bfloat16_rn(v);
-  else
-    static_cast<float*>(p.y)[i] = v;
-}
-
-// 16 int8 values from row `row`, columns [col, col+16) of a (rows, cols)
-// row-major matrix with row stride ld, zero outside it
-__device__ __forceinline__ void load16_i8(int8_t* dst, const int8_t* src,
-                                          int row, int col, int rows,
-                                          int cols, int ld, int vec) {
-  if (row < rows && vec && col + 16 <= cols) {
-    *reinterpret_cast<uint4*>(dst) =
-        *reinterpret_cast<const uint4*>(src + (size_t)row * ld + col);
-    return;
-  }
-  for (int i = 0; i < 16; ++i)
-    dst[i] = (row < rows && col + i < cols) ? src[(size_t)row * ld + col + i]
-                                            : (int8_t)0;
-}
-
-// Row sums: the 4 neighbouring lanes that stage one row add their parts
-template <typename T>
-__device__ __forceinline__ T row_total(T part) {
-  part += __shfl_xor_sync(0xffffffffu, part, 1);
-  part += __shfl_xor_sync(0xffffffffu, part, 2);
-  return part;
-}
-
-// ---------------------------------------------------------------- B4 ----
-
-__global__ void __launch_bounds__(kThreads) b4_kernel(const Params p) {
-  // sA[kc][m][k]: rows of one 16-wide K slice; sB[kc][nb][k][n]: 16 x 16
-  // blocks, so each WMMA fragment is a contiguous 256-byte block
-  __shared__ __align__(128) int8_t sA[BK8 / 16][BM][16];
-  __shared__ __align__(128) int8_t sB[BK8 / 16][BN / 16][16][16];
-  __shared__ __align__(128) int sC[kThreads / 32][16][16];
-  __shared__ float sS[BM];
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int8_t* X = static_cast<const int8_t*>(p.x);
-  const int8_t* W = static_cast<const int8_t*>(p.w);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-  // staging of x: thread -> (row ar, 16-byte chunk ac); 64 x 4 = 256
-  const int ar = tid / (BK8 / 16), ac = tid % (BK8 / 16);
-  int rsum = 0;
-  for (int k0 = 0; k0 < p.K; k0 += BK8) {
-    load16_i8(&sA[ac][ar][0], X, m0 + ar, k0 + ac * 16, p.M, p.K, p.K,
-              p.x_vec);
-    for (int idx = tid; idx < BK8 * (BN / 16); idx += kThreads) {
-      const int kr = idx / (BN / 16), nc = idx % (BN / 16);
-      load16_i8(&sB[kr / 16][nc][kr % 16][0], W, k0 + kr, n0 + nc * 16,
-                p.K, p.N, p.N, p.w_vec);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 16; ++i) rsum += sA[ac][ar][i];
-#pragma unroll
-    for (int kk = 0; kk < BK8 / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                     wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                     wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &sA[kk][wm * 32 + i * 16][0], 16);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &sB[kk][wn * 2 + j][0][0], 16);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  rsum = row_total(rsum);
-  if (ac == 0) sS[ar] = (float)rsum;  // exact: |S| <= 128 K < 2^24
-  __syncthreads();
-
-  int* scr = &sC[warp][0][0];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(scr, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int rl = wm * 32 + i * 16 + e / 16;
-        const int m = m0 + rl, n = n0 + wn * 32 + j * 16 + e % 16;
-        if (m < p.M && n < p.N)
-          store_y(p, m, n, affine((float)scr[e], p.scale[n], p.shift[n],
-                                  sS[rl], p.cnst[n]));
-      }
-      __syncwarp();
-    }
 }
 
 // ------------------------------------------------------------ B5 / B6 ----
@@ -659,29 +543,639 @@ int launch_stream_tile(const SParams& p, int bm, int splits,
   return (int)cudaErrorInvalidValue;
 }
 
-bool aligned16(const void* ptr) { return (uintptr_t)ptr % 16 == 0; }
+// ---------------------------------------------------------------- B4 ----
+//
+// Two kernels per site. int8_quantize_kernel<XT> reads the site's f32 /
+// bf16 activation once (NHWC memory, row strides given) and writes it
+// quantized, once, as contiguous int8 NHWC: per value the segment's
+// quantize_act (IEEE division by delta, round half to even, + zp, clamp,
+// - centre). No padding and no gather happen there.
+//
+// int8_conv_kernel<NSEG, MINB> is then one conv site (or dense layer)
+// as an implicit GEMM, M = B*Ho*Wo output pixels by N output channels,
+// over the K = kh*kw*C taps x channels of each of NSEG input channel
+// segments (2 at the split 1x1 shortcut convs). The K loop walks stages
+// of BK = 64 values of one segment, in tap-major order (k = (i*kw + j)*C
+// + c), the order of the segment's weight copy w_t (N, kh, kw, C).
+// A tile (BM x BK int8): each thread owns one 16-value chunk column of
+// NA rows. Once per block it computes each row's window corner (b,
+// ho*sh - pt, wo*sw - pl) as an offset and a bit per tap whose pixel lies
+// inside the image; then it walks its (tap, channel) position stage by
+// stage without a division. A chunk of a segment with C % 16 == 0 lies in
+// one tap: 16 channels by cp.async, or the segment's pad value where the
+// tap's pixel is outside the image. Other segments (C = 3) copy value by
+// value. B tile (BN x BK of w_t): cp.async, zero-filled past N and K. A
+// ring of STAGES such stages keeps the copies STAGES - 1 stages ahead of
+// the products; ldmatrix feeds mma.sync m16n8k32 s8 x s8 -> s32, 8 warps
+// in 2 x 4 of 64 x 32. S, the row sums of the A operand (pad values
+// included), comes from the landed tile in shared memory: two threads a
+// row, by dp4a.
+//
+// Epilogue: y_s = (A_s*float(acc_s) + Bc_s*S_s) + C_s per segment in
+// round-to-nearest f32 (no FMA), y = (y_0 + y_1) + bias, one cast to the
+// output type. With one K split (gridDim.z == 1) a block does every
+// segment: y_0 stays in f32 registers while segment 1 accumulates. With
+// several (the launch plan's choice where the output tiles leave SMs
+// idle), each block does `sps` stages of one segment and writes int32
+// partials (and S partials, from the first column of blocks) to a
+// workspace; int8_conv_reduce_kernel adds them, exact in any order, and
+// applies the same epilogue. Two launches give the same bits.
+//
+// An int8 x (int8_matmul_dequant's (M, K) rows as M pixels of K
+// channels) skips the quantize kernel.
 
-dim3 grid_of(int M, int N) { return dim3((N + BN - 1) / BN, (M + BM - 1) / BM); }
+namespace b4 {
+constexpr int BM = 128, BN = 128, BK = 64, THREADS = 256, STAGES = 4;
+constexpr int LDS = BK + 16;  // shared row stride, bytes: ldmatrix rows
+                              // 80 (or 144) bytes apart hit distinct banks
+constexpr int A_BYTES = BM * LDS, STAGE_BYTES = A_BYTES + BN * LDS;
+constexpr int SMEM = STAGES * STAGE_BYTES;
+constexpr int WM = 64, WN = 32, MI = WM / 16, NI = WN / 8;
+// copies: a thread owns 16-byte chunk column tid % CPR of rows
+// tid / CPR + RPP * j, NA of the A tile and NB of the B tile
+constexpr int CPR = BK / 16, RPP = THREADS / CPR;
+constexpr int NA = BM / RPP, NB = BN / RPP;
 
-bool bad_shape(int M, int N, int K) {
-  return M <= 0 || N <= 0 || K <= 0 || (M + BM - 1) / BM > 65535;
+struct Seg {
+  const int8_t* x;  // element (0, 0, 0, first channel of the segment)
+  const int8_t* w;  // (N, K) int8, K in tap-major order
+  const float *A, *Bc, *Cc;  // (N,) f32 epilogue constants
+  int a_pad;                 // int8 value of f32 zero
+  int C, K, kst;             // channels, kh*kw*C, stages of BK
+  int xvec, wvec;            // 16-byte copies allowed for x / for w
+};
+
+struct Params {
+  Seg seg[2];
+  int nseg;
+  const float* bias;  // (N,) f32 or null
+  void* y;            // (M, N) f32, or bf16 when y_bf16
+  int* ws;            // splits > 1: [splits][M][N] acc, then [splits][M] S
+  int M, N, H, W, Ho, Wo, kh, kw, sh, sw, pt, pl;
+  long long sb, srow, spix;  // int8 x strides, elements: image, row, pixel
+  int y_bf16, splits, sps, pieces0;
+};
+
+struct QParams {  // int8_quantize_kernel
+  const void* x;  // f32 / bf16, channel 0 of segment 0
+  int8_t* xq;     // (B*H*W, C0 + C1) int8, contiguous
+  long long sb, srow, spix;
+  // each segment's delta and zero point (on the device), clamp range and
+  // centre: scalars, not arrays, so that a runtime segment index selects
+  // between two parameters instead of copying them to local memory
+  const float *d0, *z0, *d1, *z1;
+  float lo0, hi0, ctr0, lo1, hi1, ctr1;
+  int HW, W, C0, Ct, vec;
+  int total;  // values (vec: 8-value chunks) to quantize, below 2^31
+};
+}  // namespace b4
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
 }
+
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
+                                       const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// quantize_act of one value: the recentred int8 value, as an int
+__device__ __forceinline__ int quant1(float v, float d, float zp, float lo,
+                                      float hi, float ctr) {
+  float r = __fadd_rn(rintf(__fdiv_rn(v, d)), zp);
+  r = fminf(fmaxf(r, lo), hi);
+  return __float2int_rz(__fsub_rn(r, ctr));  // an integer: exact
+}
+
+__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
+  return (uint32_t)(a & 0xff) | (uint32_t)(b & 0xff) << 8 |
+         (uint32_t)(c & 0xff) << 16 | (uint32_t)d << 24;
+}
+
+__device__ __forceinline__ int sum16(const uint4 q) {
+  const int ones = 0x01010101;
+  return __dp4a((int)q.x, ones, __dp4a((int)q.y, ones,
+                __dp4a((int)q.z, ones, __dp4a((int)q.w, ones, 0))));
+}
+
+template <typename XT>
+__device__ __forceinline__ float to_f32(XT v) {
+  if constexpr (sizeof(XT) == 2)
+    return __bfloat162float(v);
+  else
+    return v;
+}
+
+template <typename XT>
+__global__ void __launch_bounds__(256)
+    int8_quantize_kernel(const b4::QParams q) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= q.total) return;
+  const XT* X = static_cast<const XT*>(q.x);
+  const int per = q.vec ? q.Ct / 8 : q.Ct;
+  const int p = i / per, c = (i - p * per) * (q.vec ? 8 : 1);
+  const int b = p / q.HW, r = p - b * q.HW, h = r / q.W;
+  const XT* src = X + b * q.sb + h * q.srow + (r - h * q.W) * q.spix + c;
+  const bool s1 = c >= q.C0;
+  const float d = *(s1 ? q.d1 : q.d0), zp = *(s1 ? q.z1 : q.z0);
+  const float lo = s1 ? q.lo1 : q.lo0, hi = s1 ? q.hi1 : q.hi0;
+  const float ctr = s1 ? q.ctr1 : q.ctr0;
+  if (!q.vec) {  // one value
+    q.xq[i] = (int8_t)quant1(to_f32(*src), d, zp, lo, hi, ctr);
+    return;
+  }
+  float f[8];  // 8 channels of one segment: 16 or 32 bytes in, 8 out
+  if constexpr (sizeof(XT) == 2) {
+    const uint4 u = *reinterpret_cast<const uint4*>(src);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      f[2 * e] = __uint_as_float(w[e] << 16);  // bf16: exact
+      f[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+    }
+  } else {
+    const float4 a = reinterpret_cast<const float4*>(src)[0];
+    const float4 a2 = reinterpret_cast<const float4*>(src)[1];
+    f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+    f[4] = a2.x, f[5] = a2.y, f[6] = a2.z, f[7] = a2.w;
+  }
+  int v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = quant1(f[e], d, zp, lo, hi, ctr);
+  *reinterpret_cast<uint2*>(q.xq + (size_t)p * q.Ct + c) =
+      make_uint2(pack4(v[0], v[1], v[2], v[3]), pack4(v[4], v[5], v[6], v[7]));
+}
+
+// y[m, n] and y[m, n + 1] (when n + 1 < N) of an (M, N) f32 / bf16 output
+__device__ __forceinline__ void store_pair(void* y, int y_bf16, int N,
+                                           int m, int n, float v0,
+                                           float v1) {
+  const size_t i = (size_t)m * N + n;
+  const bool two = n + 1 < N;
+  if (y_bf16) {
+    bf16* yb = static_cast<bf16*>(y);
+    if (two && N % 2 == 0) {
+      *reinterpret_cast<uint32_t*>(yb + i) = pack_bf16(v0, v1);
+    } else {
+      yb[i] = __float2bfloat16_rn(v0);
+      if (two) yb[i + 1] = __float2bfloat16_rn(v1);
+    }
+  } else {
+    float* yf = static_cast<float*>(y);
+    if (two && N % 2 == 0) {
+      *reinterpret_cast<float2*>(yf + i) = make_float2(v0, v1);
+    } else {
+      yf[i] = v0;
+      if (two) yf[i + 1] = v1;
+    }
+  }
+}
+
+template <int NSEG, int MINB>
+__global__ void __launch_bounds__(b4::THREADS, MINB)
+    int8_conv_kernel(const b4::Params p) {
+  using namespace b4;
+  extern __shared__ __align__(128) int8_t ring[];  // STAGES x (A, B)
+  __shared__ float sS[BM];
+  __shared__ Seg sg[2];  // the segments, indexed by a runtime segment
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  if (tid == 0) {
+    sg[0] = p.seg[0];
+    sg[1] = p.seg[NSEG - 1];
+  }
+  __syncthreads();
+  const int kst0 = p.seg[0].kst;
+  const int ktot = kst0 + (NSEG == 2 ? p.seg[1].kst : 0);
+  const bool split = gridDim.z > 1;
+  // this block's stages [fb, fe) of the list: segment 0's, then 1's
+  int fb = 0, fe = ktot;
+  if (split) {
+    const int z = blockIdx.z;
+    fb = z < p.pieces0 ? z * p.sps : kst0 + (z - p.pieces0) * p.sps;
+    fe = min(z < p.pieces0 ? kst0 : ktot, fb + p.sps);
+  }
+
+  // copies: this thread's chunk column cc and rows r0 + RPP * j. Per A
+  // row, once: the offset of its window's corner (b, ho*sh - pt, wo*sw -
+  // pl) and a bit per tap whose pixel lies inside the image
+  const int cc = tid % CPR, r0 = tid / CPR;
+  long long abase[NA];
+  uint32_t amask[NA];
+  // the window corner of output pixel m: its image, top row, left column
+  auto corner = [&](int m, int& b, int& hc, int& wc) {
+    const int hw = p.Ho * p.Wo;
+    b = m / hw;
+    const int rem = m - b * hw, ho = rem / p.Wo;
+    hc = ho * p.sh - p.pt, wc = (rem - ho * p.Wo) * p.sw - p.pl;
+  };
+#pragma unroll
+  for (int j = 0; j < NA; ++j) {
+    const int m = m0 + r0 + RPP * j;
+    int b, hc, wc;
+    corner(m < p.M ? m : 0, b, hc, wc);
+    abase[j] = (long long)b * p.sb + (long long)hc * p.srow +
+               (long long)wc * p.spix;
+    amask[j] = 0;
+    if (m < p.M)
+      for (int i = 0; i < p.kh; ++i)
+        for (int jj = 0; jj < p.kw; ++jj)
+          if (hc + i >= 0 && hc + i < p.H && wc + jj >= 0 && wc + jj < p.W)
+            amask[j] |= 1u << (i * p.kw + jj);
+  }
+
+  // the walk: stage `lf` of the list is the next to load; within the
+  // current segment `ls` this thread's chunk starts at value kk, which is
+  // channel c of tap `tap` (tap offset toff); no division per stage
+  int lf = fb, ls = -1, kk = 0, c = 0, tap = 0, jj = 0;
+  long long toff = 0;
+  const int8_t *cx = nullptr, *cw = nullptr;
+  auto seg_start = [&](int s, int st) {  // the walk at stage st of seg s
+    const Seg& S = sg[s];
+    ls = s, cx = S.x, cw = S.w;
+    kk = st * BK + cc * 16;
+    tap = kk / S.C, c = kk - tap * S.C;
+    const int i = tap / p.kw;
+    jj = tap - i * p.kw;
+    toff = (long long)i * p.srow + (long long)jj * p.spix;
+  };
+
+  auto load = [&](int slot) {  // stage lf into `slot`; the walk advances
+    const int s = (NSEG == 2 && lf >= kst0) ? 1 : 0;
+    if (s != ls) seg_start(s, lf - (s ? kst0 : 0));
+    const Seg& S = sg[s];
+    const int cK = S.K, cC = S.C, cpad = S.a_pad, cxvec = S.xvec;
+    int8_t* sa = ring + slot * STAGE_BYTES;
+#pragma unroll
+    for (int j = 0; j < NA; ++j) {
+      int8_t* dst = sa + (r0 + RPP * j) * LDS + cc * 16;
+      if (kk >= cK || m0 + r0 + RPP * j >= p.M) {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      } else if (cxvec) {  // 16 channels of one tap
+        if (amask[j] >> tap & 1u) {
+          cp16(smem_addr(dst), cx + abase[j] + toff + c, true);
+        } else {
+          const uint32_t v = 0x01010101u * (uint32_t)(cpad & 0xff);
+          *reinterpret_cast<uint4*>(dst) = make_uint4(v, v, v, v);
+        }
+      } else {  // value by value
+        int v[16];
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          v[e] = 0;
+          const int k = kk + e;
+          if (k >= cK) continue;
+          int b, hc, wc;
+          corner(m0 + r0 + RPP * j, b, hc, wc);
+          const int tp = k / cC, ch = k - tp * cC, i = tp / p.kw;
+          const int h = hc + i, w = wc + tp - i * p.kw;
+          v[e] = h < 0 || h >= p.H || w < 0 || w >= p.W
+                     ? cpad
+                     : cx[(long long)b * p.sb + (long long)h * p.srow +
+                          (long long)w * p.spix + ch];
+        }
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(pack4(v[0], v[1], v[2], v[3]),
+                       pack4(v[4], v[5], v[6], v[7]),
+                       pack4(v[8], v[9], v[10], v[11]),
+                       pack4(v[12], v[13], v[14], v[15]));
+      }
+    }
+    int8_t* sbt = sa + A_BYTES;  // B: rows n of w_t
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int nl = r0 + RPP * j, n = n0 + nl;
+      int8_t* dst = sbt + nl * LDS + cc * 16;
+      const size_t row = (size_t)n * cK;
+      if (S.wvec) {
+        const bool ok = n < p.N && kk < cK;
+        cp16(smem_addr(dst), ok ? cw + row + kk : cw, ok);
+      } else {
+        int v[16];
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          v[e] = n < p.N && kk + e < cK ? cw[row + kk + e] : 0;
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(pack4(v[0], v[1], v[2], v[3]),
+                       pack4(v[4], v[5], v[6], v[7]),
+                       pack4(v[8], v[9], v[10], v[11]),
+                       pack4(v[12], v[13], v[14], v[15]));
+      }
+    }
+    ++lf, kk += BK, c += BK;  // the next stage: channel c + BK, or taps on
+    while (c >= cC && cxvec) {
+      c -= cC, ++tap, ++jj, toff += p.spix;
+      if (jj == p.kw) jj = 0, toff += p.srow - (long long)p.kw * p.spix;
+    }
+  };
+
+  int acc[MI][NI][4];
+  float y[NSEG == 2 ? MI : 1][NSEG == 2 ? NI : 1][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int n = 0; n < NI; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0;
+  int rsum = 0;  // row tid / 2 of the A tiles, values 32 * (tid % 2) ..
+
+  // the epilogue of segment s into y (NSEG == 2) or the output
+  auto finish_segment = [&](int s) {
+    const int v = rsum + __shfl_xor_sync(0xffffffffu, rsum, 1);
+    if (!(tid & 1)) sS[tid >> 1] = (float)v;  // exact: |S| < 2^24
+    rsum = 0;
+    __syncthreads();
+    const Seg& S = sg[s];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int n = 0; n < NI; ++n)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int rl = wm * WM + i * 16 + g + 8 * q;
+          const int nc = n0 + wn * WN + n * 8 + 2 * t;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = min(nc + e, p.N - 1);
+            v[e] = affine(__int2float_rn(acc[i][n][2 * q + e]), S.A[c],
+                          S.Bc[c], sS[rl], S.Cc[c]);
+            acc[i][n][2 * q + e] = 0;
+          }
+          if constexpr (NSEG == 2) {
+            if (s == 0) {
+              y[i][n][2 * q] = v[0], y[i][n][2 * q + 1] = v[1];
+              continue;
+            }
+            v[0] = __fadd_rn(y[i][n][2 * q], v[0]);
+            v[1] = __fadd_rn(y[i][n][2 * q + 1], v[1]);
+          }
+          const int m = m0 + rl;
+          if (m >= p.M || nc >= p.N) continue;
+          if (p.bias) {
+            v[0] = __fadd_rn(v[0], p.bias[nc]);
+            if (nc + 1 < p.N) v[1] = __fadd_rn(v[1], p.bias[nc + 1]);
+          }
+          store_pair(p.y, p.y_bf16, p.N, m, nc, v[0], v[1]);
+        }
+  };
+
+  const int nst = fe - fb;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nst) load(s);
+    cp_commit();
+  }
+  for (int it = 0; it < nst; ++it) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();  // stage `it` landed; every warp is done with it - 1
+    if (it + STAGES - 1 < nst) load((it + STAGES - 1) % STAGES);
+    cp_commit();
+    const int8_t* sa = ring + (it % STAGES) * STAGE_BYTES;
+    const int8_t* sbt = sa + A_BYTES;
+    const int8_t* mine = sa + (tid >> 1) * LDS + (tid & 1) * (BK / 2);
+#pragma unroll
+    for (int q = 0; q < BK / 32; ++q)
+      rsum += sum16(*reinterpret_cast<const uint4*>(mine + 16 * q));
+#pragma unroll
+    for (int ks = 0; ks < BK / 32; ++ks) {
+      uint32_t a[MI][4], b[NI][2];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        ldsm_x4(a[i], sa + (wm * WM + i * 16 + (lane & 15)) * LDS + ks * 32 +
+                          (lane >> 4) * 16);
+#pragma unroll
+      for (int n = 0; n < NI; n += 2) {
+        uint32_t r[4];
+        ldsm_x4(r, sbt + (wn * WN + (n + (lane >> 4)) * 8 + (lane & 7)) *
+                             LDS +
+                       ks * 32 + ((lane >> 3) & 1) * 16);
+        b[n][0] = r[0], b[n][1] = r[1], b[n + 1][0] = r[2],
+        b[n + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int n = 0; n < NI; ++n) mma_s8(acc[i][n], a[i], b[n]);
+    }
+    const int f = fb + it;
+    if (!split && (f == kst0 - 1 || f == ktot - 1))
+      finish_segment(f >= kst0 ? 1 : 0);
+  }
+  cp_wait<0>();
+  if (!split) return;
+
+  // K split: int32 partials of this block's stages
+  const int z = blockIdx.z;
+  int* ws = p.ws + (size_t)z * p.M * p.N;
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int n = 0; n < NI; ++n)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int m = m0 + wm * WM + i * 16 + g + 8 * q;
+        const int nc = n0 + wn * WN + n * 8 + 2 * t;
+        if (m >= p.M) continue;
+        int* dst = ws + (size_t)m * p.N + nc;
+        if (nc + 1 < p.N && p.N % 2 == 0) {
+          *reinterpret_cast<int2*>(dst) =
+              make_int2(acc[i][n][2 * q], acc[i][n][2 * q + 1]);
+        } else {
+          if (nc < p.N) dst[0] = acc[i][n][2 * q];
+          if (nc + 1 < p.N) dst[1] = acc[i][n][2 * q + 1];
+        }
+      }
+  if (blockIdx.x == 0) {
+    const int v = rsum + __shfl_xor_sync(0xffffffffu, rsum, 1);
+    const int m = m0 + (tid >> 1);
+    if (!(tid & 1) && m < p.M)
+      p.ws[(size_t)p.splits * p.M * p.N + (size_t)z * p.M + m] = v;
+  }
+}
+
+// The K splits of int8_conv_kernel added (int32, exact in any order) and
+// the epilogue applied once: one thread per output
+__global__ void __launch_bounds__(256)
+    int8_conv_reduce_kernel(const b4::Params p) {
+  const size_t mn = (size_t)p.M * p.N;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= mn) return;
+  const int m = (int)(idx / p.N), n = (int)(idx % p.N);
+  const int* wsS = p.ws + (size_t)p.splits * mn;
+  float y = 0.f;
+  for (int s = 0; s < p.nseg; ++s) {
+    const float* A = s ? p.seg[1].A : p.seg[0].A;
+    const float* Bc = s ? p.seg[1].Bc : p.seg[0].Bc;
+    const float* Cc = s ? p.seg[1].Cc : p.seg[0].Cc;
+    const int z0 = s ? p.pieces0 : 0, z1 = s ? p.splits : p.pieces0;
+    int a = 0, sum = 0;
+    for (int z = z0; z < z1; ++z) {
+      a += p.ws[(size_t)z * mn + idx];
+      sum += wsS[(size_t)z * p.M + m];
+    }
+    const float v = affine(__int2float_rn(a), A[n], Bc[n], (float)sum, Cc[n]);
+    y = s ? __fadd_rn(y, v) : v;
+  }
+  if (p.bias) y = __fadd_rn(y, p.bias[n]);
+  if (p.y_bf16)
+    static_cast<bf16*>(p.y)[idx] = __float2bfloat16_rn(y);
+  else
+    static_cast<float*>(p.y)[idx] = y;
+}
+
+template <int NSEG, int MINB>
+int launch_conv(const b4::Params& p, cudaStream_t st) {
+  auto kern = int8_conv_kernel<NSEG, MINB>;
+  static unsigned raised = 0;  // bit d: the shared memory limit raised
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 32) return (int)cudaErrorInvalidDevice;
+  if (!(raised >> dev & 1u)) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, b4::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    raised |= 1u << dev;
+  }
+  const dim3 grid((p.N + b4::BN - 1) / b4::BN, (p.M + b4::BM - 1) / b4::BM,
+                  p.splits);
+  kern<<<grid, b4::THREADS, b4::SMEM, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return (int)err;
+  const size_t n = (size_t)p.M * p.N;
+  int8_conv_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* ptr) { return (uintptr_t)ptr % 16 == 0; }
 
 }  // namespace
 
-// B4. x_c: (M, K) int8, w_c: (K, N) int8, scale_a / scale_s / cnst: (N,)
-// f32, y: (M, N) f32; all contiguous on one device. Launches on `stream`
-// and returns the CUDA error of the launch (0 on success).
-extern "C" int qdt_int8_matmul(const void* x_c, const void* w_c,
-                               const float* scale_a, const float* scale_s,
-                               const float* cnst, void* y, int M, int N,
-                               int K, void* stream) {
-  if (bad_shape(M, N, K)) return (int)cudaErrorInvalidValue;
-  Params p{x_c, w_c, scale_a, scale_s, cnst, y, M, N, K, K,
-           K % 16 == 0 && aligned16(x_c), N % 16 == 0 && aligned16(w_c), 0};
-  b4_kernel<<<grid_of(M, N), kThreads, 0,
-              static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+// B4: int8_quantize_kernel (for f32 / bf16 x) and one int8_conv_kernel
+// launch (plus int8_conv_reduce_kernel when the plan splits K), described
+// by `d`, an array of int64 indexed by DescField and, for segment s, by
+// D_SEG + s * S_FIELDS + SegField: pointers as integers, the clamp range,
+// centre and pad value of each segment's quantizer as integers. x: the
+// first channel of segment s at X (segment 1's channels follow segment
+// 0's), NHWC with element strides SB, SROW, SPIX. xtype: 0 f32 x, 1 bf16
+// x (quantized into XQ, an int8 buffer of B*H*W*(C0 + C1) values), 2 int8
+// x (one segment, already quantized). ops/int8_conv.py builds the array
+// by these names. Launches on `stream`; returns the first CUDA error (0
+// on success).
+enum DescField {
+  D_NSEG, D_XTYPE, D_M, D_N, D_H, D_W, D_HO, D_WO, D_KH, D_KW, D_SH, D_SW,
+  D_PT, D_PL, D_SB, D_SROW, D_SPIX, D_Y, D_YBF16, D_BIAS, D_WS, D_XQ,
+  D_SPLITS, D_SPS, D_PIECES0, D_SEG
+};
+enum SegField {
+  S_X, S_W, S_A, S_BC, S_CC, S_DELTA, S_ZP, S_LO, S_HI, S_CENTER, S_PAD,
+  S_C, S_FIELDS
+};
+
+extern "C" int qdt_int8_conv(const long long* d, void* stream) {
+  using namespace b4;
+  const int bad = (int)cudaErrorInvalidValue;
+  const int nseg = (int)d[D_NSEG], xt = (int)d[D_XTYPE];
+  if (nseg < 1 || nseg > 2 || xt < 0 || xt > 2 || (xt == 2 && nseg != 1))
+    return bad;
+  Params p{};
+  p.nseg = nseg;
+  p.M = (int)d[D_M], p.N = (int)d[D_N], p.H = (int)d[D_H];
+  p.W = (int)d[D_W], p.Ho = (int)d[D_HO], p.Wo = (int)d[D_WO];
+  p.kh = (int)d[D_KH], p.kw = (int)d[D_KW], p.sh = (int)d[D_SH];
+  p.sw = (int)d[D_SW], p.pt = (int)d[D_PT], p.pl = (int)d[D_PL];
+  p.sb = d[D_SB], p.srow = d[D_SROW], p.spix = d[D_SPIX];
+  p.y = (void*)d[D_Y], p.y_bf16 = (int)d[D_YBF16];
+  p.bias = (const float*)d[D_BIAS], p.ws = (int*)d[D_WS];
+  p.splits = (int)d[D_SPLITS], p.sps = (int)d[D_SPS];
+  p.pieces0 = (int)d[D_PIECES0];
+  if (p.M <= 0 || p.N <= 0 || p.H <= 0 || p.W <= 0 || p.Ho <= 0 ||
+      p.Wo <= 0 || p.kh <= 0 || p.kw <= 0 || p.sh <= 0 || p.sw <= 0 ||
+      p.pt < 0 || p.pl < 0 || p.kh * p.kw > 32 || p.M % (p.Ho * p.Wo) ||
+      !p.y ||
+      (p.M + BM - 1) / BM > 65535)
+    return bad;
+  QParams q{};
+  const void* x0 = nullptr;
+  int pieces = 0, ct = 0;
+  for (int s = 0; s < nseg; ++s) {
+    const long long* e = d + D_SEG + s * S_FIELDS;
+    Seg& S = p.seg[s];
+    if (s == 0) x0 = (const void*)e[S_X];
+    S.x = (const int8_t*)e[S_X], S.w = (const int8_t*)e[S_W];
+    S.A = (const float*)e[S_A], S.Bc = (const float*)e[S_BC];
+    S.Cc = (const float*)e[S_CC], S.a_pad = (int)e[S_PAD];
+    S.C = (int)e[S_C];
+    S.K = p.kh * p.kw * S.C;
+    S.kst = (S.K + BK - 1) / BK;
+    const float* dl = (const float*)e[S_DELTA];
+    const float* zp = (const float*)e[S_ZP];
+    if (s == 0) {
+      q.d0 = q.d1 = dl, q.z0 = q.z1 = zp;
+      q.lo0 = q.lo1 = (float)e[S_LO], q.hi0 = q.hi1 = (float)e[S_HI];
+      q.ctr0 = q.ctr1 = (float)e[S_CENTER];
+    } else {
+      q.d1 = dl, q.z1 = zp, q.lo1 = (float)e[S_LO];
+      q.hi1 = (float)e[S_HI], q.ctr1 = (float)e[S_CENTER];
+    }
+    if (S.C <= 0 || !S.x || !S.w || !S.A || !S.Bc || !S.Cc ||
+        (xt != 2 && (!dl || !zp)))
+      return bad;
+    ct += S.C;
+    if (p.splits > 1) {
+      if (p.sps <= 0) return bad;
+      pieces += (S.kst + p.sps - 1) / p.sps;
+      if (s == 0 && pieces != p.pieces0) return bad;
+    }
+  }
+  if (p.splits < 1 || p.splits > 65535 ||
+      (p.splits > 1 && (pieces != p.splits || !p.ws)))
+    return bad;
+  if (p.splits == 1) p.pieces0 = 1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (xt != 2) {  // quantize x once into XQ, contiguous NHWC int8
+    int8_t* xq = (int8_t*)d[D_XQ];
+    if (!xq) return bad;
+    const long long pix = (long long)(p.M / (p.Ho * p.Wo)) * p.H * p.W;
+    q.x = x0, q.xq = xq, q.sb = p.sb, q.srow = p.srow, q.spix = p.spix;
+    q.HW = p.H * p.W, q.W = p.W, q.C0 = p.seg[0].C, q.Ct = ct;
+    const long long ew = xt == 0 ? 4 : 2;
+    q.vec = ct % 8 == 0 && q.C0 % 8 == 0 && aligned16(x0) &&
+            (p.sb * ew) % 16 == 0 && (p.srow * ew) % 16 == 0 &&
+            (p.spix * ew) % 16 == 0;
+    if (pix * ct >= (1ll << 31)) return bad;
+    q.total = (int)(pix * ct / (q.vec ? 8 : 1));
+    const unsigned blocks = (unsigned)((q.total + 255) / 256);
+    if (xt == 1)
+      int8_quantize_kernel<bf16><<<blocks, 256, 0, st>>>(q);
+    else
+      int8_quantize_kernel<float><<<blocks, 256, 0, st>>>(q);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    p.seg[0].x = xq;
+    if (nseg == 2) p.seg[1].x = xq + p.seg[0].C;
+    p.sb = (long long)p.H * p.W * ct, p.srow = (long long)p.W * ct;
+    p.spix = ct;
+  }
+  for (int s = 0; s < nseg; ++s) {
+    Seg& S = p.seg[s];
+    S.xvec = S.C % 16 == 0 && aligned16(S.x) && p.sb % 16 == 0 &&
+             p.srow % 16 == 0 && p.spix % 16 == 0;
+    S.wvec = S.K % 16 == 0 && aligned16(S.w);
+  }
+  if (nseg == 1) p.seg[1] = p.seg[0];
+  return nseg == 1 ? launch_conv<1, 2>(p, st) : launch_conv<2, 1>(p, st);
 }
 
 // B5 (int4 = 0): w (K, N) int8. B6 (int4 = 1): w (K/2, N) uint8 nibble

@@ -27,3 +27,16 @@ def resolve_device(device="cuda") -> torch.device:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return dev
+
+
+_sm_counts: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of a CUDA device, read once per device."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]

@@ -41,7 +41,7 @@ SIGNATURES = {
                                _P],
     },
     "int_matmul.cu": {
-        "qdt_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "qdt_int8_conv": [_P, _P],
         "qdt_stream_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _I, _I, _P],
     },

@@ -21,12 +21,17 @@ epilogue.
 
 Convolutions: torch has no int8 convolution on the card, and a float
 convolution of integer values is not exact (Winograd and FFT algorithms;
-W8 sums pass 2^24). So `int8_conv2d` pads the int8 activations with the
-integer value of f32 zero (`_pad_value_i8`, not zero for asymmetric
-grids), gathers int8 patches in the (c, kh, kw) K order of the packed
-weight, and runs B4 over them: a patch row's sum is the JAX package's
-windowed sum `s_win` (int8.py:206-209), so the epilogue is unchanged. A
-1x1 stride-1 conv needs no gather.
+W8 sums pass 2^24). On the card, `int8_conv2d` and `int8_dense` are one
+call of kernel B4 each (ops/int8_conv.py, csrc/int_matmul.cu): a pass
+that quantizes the activation once, then an implicit GEMM that pads it
+with the integer value of f32 zero (`_pad_value_i8`, not zero for
+asymmetric grids) and gathers the taps in its load path, and fuses both
+segments' epilogues and the bias. On the CPU they run the plain version,
+`int8_conv2d_plain` / `int8_dense_plain`: quantize, pad, gather int8
+patches in the (c, kh, kw) K order of the packed weight and run B4's
+plain product over them; a patch row's sum is the JAX package's windowed
+sum `s_win` (int8.py:206-209), so the epilogue is the same. A 1x1
+stride-1 conv needs no gather.
 
 Activation x activation products (attention) have no int8 kernel in the
 JAX package either: `int8_einsum` runs an f32 einsum of the int8 values,
@@ -37,7 +42,9 @@ the partial sums stay below 2^24); a longer one is split into chunks of
 Layouts: weights arrive in the port's (out, in, ...) layout; a packed
 segment holds w_c as the 2-D (K, N) int8 matrix of the JAX package's
 stream pack (`to2d`, deploy.py:127-134): rows in (c, kh, kw) order,
-output channels last.
+output channels last. Beside it, `w_t` holds the same values as the
+(N, kh, kw, C) tap-major copy that the kernel reads (ops/int8_conv.py::
+tap_major), made once at pack time.
 """
 
 from __future__ import annotations
@@ -49,13 +56,16 @@ from typing import List, Optional, Tuple, Union
 import torch
 
 from qdiffusion_torch import nn
-from qdiffusion_torch.ops.int8_matmul import int8_dense_pallas
+from qdiffusion_torch.ops.int8_conv import conv_geometry, \
+    dense_geometry, int8_conv, tap_major
+from qdiffusion_torch.ops.int8_matmul import int8_dense_pallas, \
+    int8_matmul_plain
 from qdiffusion_torch.ops.qlayers import LayerQuantConfig, split_weight
 from qdiffusion_torch.quant.affine import AffineQuantizerSpec
 
 __all__ = ["PackedSegment", "PackedWeight", "weight_int_values",
            "pack_layer", "quantize_act", "int8_conv2d", "int8_dense",
-           "int8_einsum", "to2d"]
+           "int8_conv2d_plain", "int8_dense_plain", "int8_einsum", "to2d"]
 
 # contraction length up to which an f32 product of int8 values is exact
 _EXACT_F32_K = 1024
@@ -75,6 +85,7 @@ class PackedSegment:
     in_ch: int  # input channels of the segment
     kshape: Tuple[int, ...]  # filter dims: (kh, kw), (kl,), () for dense
     a_pad: int  # int8 value of f32 zero (_pad_value_i8)
+    w_t: torch.Tensor  # int8 (N, *kshape, in_ch): B4's tap-major w_c
 
 
 @dataclasses.dataclass
@@ -143,8 +154,10 @@ def _pack_segment(w: torch.Tensor, wst: dict, ast: dict,
     scale_s = scale_a * cw
     const = scale_a * (cx * wsum + cx * cw * k_elems)
 
+    w2d = to2d(w_c)
     return PackedSegment(
-        w_c=to2d(w_c), scale_a=scale_a.contiguous(),
+        w_c=w2d, w_t=tap_major(w2d, tuple(int(s) for s in w.shape[2:])),
+        scale_a=scale_a.contiguous(),
         scale_s=scale_s.contiguous(), const=const.contiguous(),
         a_delta=a_delta, a_zp=a_zp, a_spec=a_spec, in_ch=int(w.shape[1]),
         kshape=tuple(int(s) for s in w.shape[2:]),
@@ -192,12 +205,20 @@ def _segments_of(x: torch.Tensor, packed: PackedWeight, axis: int):
     return out
 
 
-def int8_conv2d(x: torch.Tensor, packed: PackedWeight, *, stride=1,
-                padding: Union[str, int] = 0,
-                out_dtype=None) -> torch.Tensor:
-    """Integer conv2d matching qconv2d's fake-quant semantics bit-exactly
-    in integer space. x: NCHW (channels_last); result NCHW in out_dtype
-    (default x's)."""
+def _segment_product(p: torch.Tensor, seg: PackedSegment) -> torch.Tensor:
+    """B4's plain product of one segment: int8_dense_pallas on the CPU
+    (which is the plain version there), int8_matmul_plain elsewhere."""
+    if p.device.type == "cpu":
+        return int8_dense_pallas(p, seg.w_c, seg.scale_a, seg.scale_s,
+                                 seg.const)
+    return int8_matmul_plain(p, seg.w_c, seg.scale_a, seg.scale_s, seg.const)
+
+
+def int8_conv2d_plain(x: torch.Tensor, packed: PackedWeight, *, stride=1,
+                      padding: Union[str, int] = 0,
+                      out_dtype=None) -> torch.Tensor:
+    """int8_conv2d's function in plain PyTorch, on any device: quantize,
+    pad, gather patches and B4's plain product per segment."""
     out_dtype = out_dtype or x.dtype
     if isinstance(stride, int):
         stride = (stride, stride)
@@ -205,32 +226,97 @@ def int8_conv2d(x: torch.Tensor, packed: PackedWeight, *, stride=1,
     for seg, xseg in zip(packed.segments, _segments_of(x, packed, 1)):
         pads = nn.pad_amounts(padding, seg.kshape, stride, xseg.shape[2:])
         p = nn.patches(quantize_act(xseg, seg), seg.kshape, stride, pads,
-                    value=seg.a_pad)
+                       value=seg.a_pad)
         b, ho, wo, k = p.shape
-        y = int8_dense_pallas(p.reshape(-1, k), seg.w_c, seg.scale_a,
-                              seg.scale_s, seg.const).reshape(b, ho, wo, -1)
+        y = _segment_product(p.reshape(-1, k), seg).reshape(b, ho, wo, -1)
         acc = y if acc is None else acc + y
     if packed.bias is not None:
         acc = acc + packed.bias
     return acc.to(out_dtype).permute(0, 3, 1, 2)
 
 
-def int8_dense(x: torch.Tensor, packed: PackedWeight,
-               out_dtype=None) -> torch.Tensor:
-    """Integer dense over the last axis, matching qdense's fake-quant
-    semantics (int8.py:300-333): kernel B4 on the card."""
+def int8_dense_plain(x: torch.Tensor, packed: PackedWeight,
+                     out_dtype=None) -> torch.Tensor:
+    """int8_dense's function in plain PyTorch, on any device."""
     out_dtype = out_dtype or x.dtype
     acc = None
     for seg, xseg in zip(packed.segments, _segments_of(x, packed, -1)):
         x_c = quantize_act(xseg, seg)
         lead = x_c.shape[:-1]
-        y = int8_dense_pallas(x_c.reshape(-1, x_c.shape[-1]), seg.w_c,
-                              seg.scale_a, seg.scale_s, seg.const)
+        y = _segment_product(x_c.reshape(-1, x_c.shape[-1]), seg)
         y = y.reshape(*lead, -1)
         acc = y if acc is None else acc + y
     if packed.bias is not None:
         acc = acc + packed.bias
     return acc.to(out_dtype)
+
+
+def _kernel_segments(packed: PackedWeight) -> list:
+    """The packed segments as B4's wrapper takes them."""
+    out, c0 = [], 0
+    for seg in packed.segments:
+        spec = seg.a_spec
+        if spec.symmetric:
+            lo, hi, center = -spec.n_levels - 1, spec.n_levels, 0
+        else:
+            lo, hi = 0, spec.n_levels - 1
+            center = 2 ** (spec.n_bits - 1)
+        out.append({"c0": c0, "C": seg.in_ch, "w_t": seg.w_t,
+                    "A": seg.scale_a, "Bc": seg.scale_s, "Cc": seg.const,
+                    "delta": seg.a_delta, "zp": seg.a_zp, "lo": lo,
+                    "hi": hi, "center": center, "a_pad": seg.a_pad})
+        c0 += seg.in_ch
+    return out
+
+
+def int8_conv2d(x: torch.Tensor, packed: PackedWeight, *, stride=1,
+                padding: Union[str, int] = 0,
+                out_dtype=None) -> torch.Tensor:
+    """Integer conv2d matching qconv2d's fake-quant semantics bit-exactly
+    in integer space. x: NCHW (channels_last); result NCHW in out_dtype
+    (default x's), channels_last. CPU tensor: the plain version; CUDA
+    tensor: one call of kernel B4, which reads x in place (a layout with
+    a channel stride other than 1 raises ValueError)."""
+    if x.device.type == "cpu":
+        return int8_conv2d_plain(x, packed, stride=stride, padding=padding,
+                                 out_dtype=out_dtype)
+    out_dtype = out_dtype or x.dtype
+    if isinstance(stride, int):
+        stride = (stride, stride)
+    sb, sc, sh, sw = x.stride()
+    if sc != 1:
+        raise ValueError(f"int8_conv2d: x {tuple(x.shape)} with strides "
+                         f"{x.stride()} is not channels_last (channel "
+                         "stride 1)")
+    kshape = packed.segments[0].kshape
+    pads = nn.pad_amounts(padding, kshape, stride, x.shape[2:])
+    geom = conv_geometry(x.shape, kshape, stride, pads)
+    y = int8_conv(x, (sb, sh, sw), geom, _kernel_segments(packed),
+                  packed.bias, out_dtype)
+    return y.view(geom.B, geom.Ho, geom.Wo, -1).permute(0, 3, 1, 2)
+
+
+def int8_dense(x: torch.Tensor, packed: PackedWeight,
+               out_dtype=None) -> torch.Tensor:
+    """Integer dense over the last axis, matching qdense's fake-quant
+    semantics (int8.py:300-333). CPU tensor: the plain version; CUDA
+    tensor: one call of kernel B4 over x's rows in place (rows that
+    cannot be viewed with one stride raise ValueError)."""
+    if x.device.type == "cpu":
+        return int8_dense_plain(x, packed, out_dtype)
+    out_dtype = out_dtype or x.dtype
+    k = x.shape[-1]
+    try:
+        x2 = x.view(-1, k)
+    except RuntimeError as e:
+        raise ValueError(f"int8_dense: x {tuple(x.shape)} with strides "
+                         f"{x.stride()} has no (rows, {k}) view") from e
+    if x2.stride(1) != 1:
+        raise ValueError(f"int8_dense: x {tuple(x.shape)} with strides "
+                         f"{x.stride()} has a channel stride other than 1")
+    y = int8_conv(x2, (x2.stride(0), 0, 0), dense_geometry(x2.shape[0]),
+                  _kernel_segments(packed), packed.bias, out_dtype)
+    return y.view(*x.shape[:-1], -1)
 
 
 def _quantize_dynamic(x: torch.Tensor, st: dict, spec: AffineQuantizerSpec):

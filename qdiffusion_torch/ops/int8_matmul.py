@@ -20,7 +20,10 @@ with the bias fused into const. int8 values are exact in bf16, so the
 products are those of the fold engine's bf16 matmul.
 
 Both are CUDA C++ in csrc/int_matmul.cu (see its note for what bounds them
-on an H100 and the design). B5 (and B6, which shares its launch) runs on
+on an H100 and the design). B4's kernel is the int8 engine's implicit-GEMM
+convolution (ops/int8_conv.py); `int8_matmul_dequant` runs it on an
+(M, K) int8 x as M pixels of K channels. B5 (and B6, which shares its
+launch) runs on
 `stream_plan`: a tile height chosen by M and a K split, added up in a
 fixed order, wherever the output tiles alone leave SMs idle. The TPU
 wrappers pad (M, K, N) to Mosaic's tiles; the CUDA kernels mask their
@@ -37,6 +40,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from qdiffusion_torch.device import sm_count
 
 __all__ = ["int8_matmul_dequant", "int8_matmul_plain", "int8_dense_pallas",
            "int8_stream_matmul", "int8_stream_plain", "int8_dense_stream",
@@ -98,10 +103,12 @@ def int8_matmul_dequant(x_c: torch.Tensor, w_c: torch.Tensor,
                         ) -> torch.Tensor:
     """One launch of B4 on CUDA tensors: (M, K) int8 . (K, N) int8 ->
     (M, N) f32, epilogue fused. scale_a / scale_s / const: contiguous f32
-    (N,) (scale_s None: zeros, for symmetric weights). Raises ValueError
-    for what the kernel does not take. Adds one to
-    `int8_matmul_dequant.launches`."""
-    from qdiffusion_torch.ops import _cuda
+    (N,) (scale_s None: zeros, for symmetric weights). The kernel is the
+    int8 engine's convolution (ops/int8_conv.py) at M pixels of K
+    channels, 1 x 1 filter; it reads w in (N, K) order, so w_c is
+    transposed into a copy first. Raises ValueError for what the kernel
+    does not take. Adds one to `int8_matmul_dequant.launches`."""
+    from qdiffusion_torch.ops.int8_conv import dense_geometry, int8_conv
 
     if scale_s is None:
         scale_s = torch.zeros_like(scale_a)
@@ -111,13 +118,11 @@ def int8_matmul_dequant(x_c: torch.Tensor, w_c: torch.Tensor,
                            {"scale_a": scale_a, "scale_s": scale_s,
                             "const": const}, torch.int8, x_c.shape[1])
     M, K = x_c.shape
-    N = w_c.shape[1]
-    y = torch.empty((M, N), dtype=torch.float32, device=x_c.device)
-    err = _cuda.library("int_matmul.cu").qdt_int8_matmul(
-        x_c.data_ptr(), w_c.data_ptr(), scale_a.data_ptr(),
-        scale_s.data_ptr(), const.data_ptr(), y.data_ptr(), M, N, K,
-        _cuda.stream_ptr(x_c.device))
-    _cuda.check(err, f"int8_matmul_dequant (M={M}, K={K}, N={N})")
+    seg = {"c0": 0, "C": K, "w_t": w_c.t().contiguous(), "A": scale_a,
+           "Bc": scale_s, "Cc": const, "lo": -128, "hi": 127, "center": 0,
+           "a_pad": 0}
+    y = int8_conv(x_c, (K, 0, 0), dense_geometry(M), [seg], None,
+                  torch.float32)
     int8_matmul_dequant.launches += 1
     return y
 
@@ -261,18 +266,6 @@ SD_STREAM_W8 = {
 }
 
 
-_sm_counts: dict = {}
-
-
-def _sm_count(device) -> int:
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _sm_counts[idx]
-
-
 def launch_stream(fn: str, x: torch.Tensor, w: torch.Tensor,
                   scale: torch.Tensor, shift: torch.Tensor,
                   const: torch.Tensor, out_dtype, int4: bool
@@ -296,7 +289,7 @@ def launch_stream(fn: str, x: torch.Tensor, w: torch.Tensor,
                            x.shape[1] // 2 if int4 else x.shape[1])
     M, K = x.shape
     N = w.shape[1]
-    plan = stream_plan(M, N, K, int4, _sm_count(x.device))
+    plan = stream_plan(M, N, K, int4, sm_count(x.device))
     y = torch.empty((M, N), dtype=out_dtype, device=x.device)
     ws = torch.empty(plan.splits * M * (N + 1), dtype=torch.float32,
                      device=x.device) if plan.splits > 1 else None

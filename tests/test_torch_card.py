@@ -393,6 +393,173 @@ def test_b4_matches_plain_bit_for_bit(card, shape):
     assert torch.equal(acc.double(), want)
 
 
+def _int8_site(card, kshape, ci, co, split=0, seed=0, hw=9, batch=2):
+    """A random conv (kshape (kh, kw)) or dense (kshape ()) layer packed
+    for the int8 engine on the card: W4 weights, an asymmetric 8-bit
+    activation grid (non-zero pad value) calibrated on its own input, and
+    that input (NCHW channels_last, or rows)."""
+    from qdiffusion_torch.ops.int8 import pack_layer
+    from qdiffusion_torch.ops.qlayers import LayerQuantConfig, split_weight
+    from qdiffusion_torch.quant.affine import AffineQuantizerSpec, \
+        init_state
+
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn((co, ci, *kshape), generator=g) * 0.3
+    x = torch.randn((batch, ci, hw, hw) if kshape else (batch, ci),
+                    generator=g) * 1.5 + 0.3
+    wq = AffineQuantizerSpec(n_bits=4, channel_wise=True,
+                             scale_method="max", channel_axis=0)
+    aq = AffineQuantizerSpec(n_bits=8, symmetric=False, scale_method="max",
+                             leaf_param=True)
+    if split:
+        wa, wb = split_weight(w, split)
+        xa, xb = x.narrow(1, 0, split), x.narrow(1, split, ci - split)
+        st = {"w": init_state(wa, wq), "w0": init_state(wb, wq),
+              "a": init_state(xa, aq), "a0": init_state(xb, aq)}
+    else:
+        st = {"w": init_state(w, wq), "a": init_state(x, aq)}
+    st = {k: {n: v.to(card) for n, v in d.items()} for k, d in st.items()}
+    mod = torch.nn.Module()
+    mod.weight = torch.nn.Parameter(w.to(card))
+    mod.bias = torch.nn.Parameter(torch.randn(co, generator=g).to(card))
+    packed = pack_layer(mod, st, LayerQuantConfig(wq=wq, aq=aq, split=split))
+    assert all(s.a_pad != 0 for s in packed.segments)
+    x = x.to(card)
+    if kshape:
+        x = x.contiguous(memory_format=torch.channels_last)
+    return packed, x
+
+
+def _identity(packed):
+    """The same site with the epilogue y = float(acc): A = 1, Bc = C = 0,
+    no bias."""
+    import dataclasses
+
+    segs = [dataclasses.replace(s, scale_a=torch.ones_like(s.scale_a),
+                                scale_s=torch.zeros_like(s.scale_s),
+                                const=torch.zeros_like(s.const))
+            for s in packed.segments]
+    return dataclasses.replace(packed, segments=segs, bias=None)
+
+
+# (kshape, C in, N, split, H = W, batch, stride, padding, pre-pad): one
+# of each geometry kind of the CIFAR int8 step, a ragged multi-tile M, and
+# small-M sites whose plan splits K
+B4_SITES = {
+    "3x3": ((3, 3), 32, 48, 0, 9, 2, 1, 1, False),
+    "input_conv_c3": ((3, 3), 3, 40, 0, 9, 2, 1, 1, False),
+    "output_conv_n3": ((3, 3), 32, 3, 0, 9, 2, 1, 1, False),
+    "prepadded_stride2": ((3, 3), 32, 32, 0, 9, 2, 2, 0, True),
+    "split_1x1": ((1, 1), 48, 40, 16, 9, 2, 1, 0, False),
+    "ragged_m": ((3, 3), 16, 20, 0, 13, 2, 1, 1, False),
+    "split_k": ((3, 3), 64, 256, 0, 4, 1, 1, 1, False),
+    "split_k_split_1x1": ((1, 1), 512, 256, 256, 4, 1, 1, 0, False),
+    "dense": ((), 64, 72, 0, 1, 5, 1, 0, False),
+    "dense_split": ((), 48, 24, 16, 1, 5, 1, 0, False),
+}
+
+
+def _b4_run(packed, x, kshape, stride, padding, plain=False):
+    from qdiffusion_torch.ops import int8
+
+    if kshape:
+        fn = int8.int8_conv2d_plain if plain else int8.int8_conv2d
+        return fn(x, packed, stride=stride, padding=padding)
+    return (int8.int8_dense_plain if plain else int8.int8_dense)(x, packed)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", list(B4_SITES))
+def test_int8_conv_kernel_matches_plain_bit_for_bit(card, site, dtype):
+    """B4 (one launch per site) against the plain composition on the same
+    card inputs (quantize, pad, gather, B4's plain product, the same f32
+    epilogue): the int32 products exactly (identity epilogue, sums below
+    2^24 so their f32 values are exact) and the output bit for bit, in
+    the f32 and bf16 carriers; a second launch gives the same bits."""
+    from qdiffusion_torch.ops.int8_conv import conv_plan, int8_conv, stages
+
+    kshape, ci, co, split, hw, batch, stride, padding, prepad = B4_SITES[site]
+    packed, x = _int8_site(card, kshape, ci, co, split, seed=ci + co, hw=hw,
+                           batch=batch)
+    if prepad:
+        x = torch.nn.functional.pad(x, (0, 1, 0, 1))
+        assert x.is_contiguous(memory_format=torch.channels_last)
+    x = x.to(dtype)
+    if site.startswith("split_k"):
+        assert conv_plan(batch * hw * hw, co, [
+            stages(s.w_t[0].numel()) for s in packed.segments]).splits > 1
+    before = int8_conv.launches
+    got = _b4_run(packed, x, kshape, stride, padding)
+    assert int8_conv.launches == before + 1
+    want = _b4_run(packed, x, kshape, stride, padding, plain=True)
+    assert got.dtype == dtype and got.shape == want.shape
+    if kshape:
+        assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+    ident = _identity(packed)
+    acc = _b4_run(ident, x.float(), kshape, stride, padding)
+    acc_plain = _b4_run(ident, x.float(), kshape, stride, padding,
+                        plain=True)
+    assert float(acc_plain.abs().max()) < 2**24
+    assert torch.equal(acc_plain, acc_plain.round())
+    assert torch.equal(acc, acc_plain)
+    assert torch.equal(got, _b4_run(packed, x, kshape, stride, padding))
+
+
+def test_int8_conv_refuses_what_the_kernel_does_not_take(card):
+    import dataclasses
+
+    from qdiffusion_torch.ops import int8
+
+    packed, x = _int8_site(card, (3, 3), 16, 8, seed=3)
+    with pytest.raises(ValueError, match="channels_last"):
+        int8.int8_conv2d(x.contiguous(), packed, padding=1)
+    with pytest.raises(ValueError, match="dtype"):
+        int8.int8_conv2d(x.half(), packed, padding=1)
+    seg = packed.segments[0]
+    on_cpu = dataclasses.replace(packed, segments=[dataclasses.replace(
+        seg, a_delta=seg.a_delta.cpu())])
+    with pytest.raises(ValueError, match="delta"):
+        int8.int8_conv2d(x, on_cpu, padding=1)
+    f64 = dataclasses.replace(packed, bias=packed.bias.double())
+    with pytest.raises(ValueError, match="bias"):
+        int8.int8_conv2d(x, f64, padding=1)
+    dense, xd = _int8_site(card, (), 16, 8, seed=4, batch=6)
+    with pytest.raises(ValueError, match="channel stride"):
+        int8.int8_dense(xd.t().contiguous().t(), dense)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,path", [((64, 1024, 128), "rows"),
+                                        ((64, 256, 384), "rows"),
+                                        ((2, 16384, 320), "split"),
+                                        ((1, 262144, 128), "split")])
+def test_group_norm_paths_match_plain(card, shape, path, dtype):
+    """B1 on each path of its plan: narrow-group CIFAR slabs (4 and 12
+    channels a group, one pass over whole rows) and split-S slabs (an SD
+    UNet slab at 64x64, a 512x512 VAE decode row): within the plain
+    version's tolerance (f32 1e-4, bf16 one rounding), and two calls
+    bit-equal (the partials add in a fixed order)."""
+    from qdiffusion_torch.ops.groupnorm import group_norm_plan
+    from qdiffusion_torch.device import sm_count
+
+    plan = group_norm_plan(shape[0], shape[1], shape[2],
+                           elem=torch.tensor([], dtype=dtype).element_size(),
+                           sms=sm_count(card))
+    assert plan.path == path
+    x, scale, bias = (torch.from_numpy(a).to(card)
+                      for a in _inputs(shape, seed=6))
+    x = x.to(dtype)
+    before = fused_group_norm.launches
+    got = fused_group_norm(x, scale, bias)
+    assert fused_group_norm.launches == before + 1
+    want = group_norm_plain(x, scale, bias)
+    tol = dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32 else \
+        dict(rtol=1e-2, atol=2e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, fused_group_norm(x, scale, bias))
+
+
 @pytest.mark.parametrize("kernel", ["B5", "B6"])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
@@ -524,11 +691,12 @@ def test_tiny_int8_step_card_matches_cpu(card):
     B1) against the CPU (plain versions). Integer products are exact on
     both; f32 noise elsewhere flips quantization buckets that then
     cascade, as between the port and the JAX package (relative L2 2e-2
-    there): 5e-2. Every packed segment launches B4 once."""
+    there): 5e-2. Every packed site launches B4 once (both segments of
+    a split site in one launch)."""
     from qdiffusion_torch.calib.engine import init_act_qstate, \
         init_weight_qstate
     from qdiffusion_torch.deploy import make_quantized_step, pack_model
-    from qdiffusion_torch.ops.int8_matmul import int8_matmul_dequant
+    from qdiffusion_torch.ops.int8_conv import int8_conv
 
     cpu_m, card_m = _tiny_pair(card, weight_bit=8, quant_act=True,
                                split=True)
@@ -538,12 +706,12 @@ def test_tiny_int8_step_card_matches_cpu(card):
                                carrier_dtype=torch.float32)(x, t)
     qc = {s: {k: {n: v.to(card) for n, v in st.items()}
               for k, st in sl.items()} for s, sl in q.items()}
-    per_step = sum(len(p.segments) for p in pack_model(card_m, qc).values())
-    before = int8_matmul_dequant.launches
+    per_step = len(pack_model(card_m, qc))
+    before = int8_conv.launches
     got = make_quantized_step(card_m, qc, engine="int8",
                               carrier_dtype=torch.float32)(x.to(card),
                                                            t.to(card))
-    assert int8_matmul_dequant.launches - before == per_step
+    assert int8_conv.launches - before == per_step
     assert bool(torch.isfinite(got).all())
     assert _rel_l2(got, want) <= 5e-2
 

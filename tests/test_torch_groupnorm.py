@@ -89,3 +89,80 @@ def test_non_cuda_device_other_than_cpu_raises():
     with pytest.raises(ValueError, match="unsupported device"):
         fused_group_norm(x, w, w)
 
+
+
+# -- B1's launch plan and its split path's reduction -------------------------
+
+# every GroupNorm (B, S, C) of the CIFAR step at batch 64, the SD UNet
+# call at batch 8 and the VAE decode at batch 4 (its 256^2 and 512^2
+# slabs), and the stream decode at batch 1
+PLAN_SHAPES = [(64, 1024, 128), (64, 1024, 256), (64, 256, 256),
+               (64, 1024, 384), (64, 256, 384), (64, 64, 512),
+               (64, 16, 256), (64, 16, 512), (8, 4096, 320), (8, 4096, 640),
+               (8, 1024, 640), (8, 1024, 1280), (8, 256, 1280),
+               (8, 64, 2560), (4, 4096, 512), (4, 16384, 512),
+               (4, 65536, 256), (4, 65536, 512), (4, 262144, 128),
+               (1, 262144, 128)]
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_group_norm_plan_covers_the_slab(shape, elem):
+    from qdiffusion_torch.ops.groupnorm import MIN_ROW_BYTES, \
+        ONE_PASS_BYTES, group_norm_plan
+
+    b, s, c = shape
+    cg = c // 32
+    plan = group_norm_plan(b, s, c, 32, elem, sms=132)
+    assert plan.grid == (plan.chunks, plan.splits, b)
+    # whole groups, every group once, in a power-of-two tile
+    assert plan.groups * (plan.chunks - 1) < 32 <= plan.groups * plan.chunks
+    assert plan.block_c >= plan.groups * cg
+    assert plan.block_c & (plan.block_c - 1) == 0
+    assert plan.block_g >= plan.groups and plan.block_s >= 1
+    # rows of a program are at least a cache line wide, or the whole row
+    assert plan.groups * cg * elem >= min(MIN_ROW_BYTES, c * elem)
+    # every row once
+    assert plan.rows * (plan.splits - 1) < s <= plan.rows * plan.splits
+    if plan.path == "rows":
+        assert plan.splits == 1 and s * plan.block_c * elem <= ONE_PASS_BYTES
+    else:
+        assert plan.splits > 1 and plan.rows % plan.block_s == 0
+
+
+def test_group_norm_plan_paths():
+    from qdiffusion_torch.ops.groupnorm import group_norm_plan
+
+    for b, s, c in PLAN_SHAPES[:8]:  # the CIFAR step: one pass
+        assert group_norm_plan(b, s, c, elem=2).path == "rows"
+    for b, s, c in [(8, 4096, 320), (4, 262144, 128), (4, 65536, 256),
+                    (1, 262144, 128)]:  # larger than L2, or a small batch
+        assert group_norm_plan(b, s, c, elem=2).path == "split"
+    # whole rows at C = 128 on the decode: one chunk of all 32 groups
+    assert group_norm_plan(4, 262144, 128, elem=2).chunks == 1
+
+
+@pytest.mark.parametrize("shape", [(1, 4096, 96), (2, 2000, 64),
+                                   (2, 33, 384)])
+def test_split_path_reduction_matches_plain_and_pallas(shape):
+    """The split path's arithmetic (per-piece partial sums added in piece
+    order), at plans with many pieces, against the plain version and the
+    Pallas kernel in interpret mode, f32 to 2e-5."""
+    from qdiffusion_torch.ops.groupnorm import group_norm_plan, \
+        group_norm_split_model
+
+    b, s, c = shape
+    plan = group_norm_plan(b, s, c, elem=4, sms=132)
+    if plan.path != "split":  # a small slab: force pieces of 16 rows
+        plan = plan._replace(path="split", rows=16, splits=-(-s // 16))
+    assert plan.splits > 1
+    x, scale, bias = _inputs(shape, seed=3)
+    got = group_norm_split_model(torch.from_numpy(x), torch.from_numpy(scale),
+                                 torch.from_numpy(bias), plan)
+    plain = group_norm_plain(torch.from_numpy(x), torch.from_numpy(scale),
+                             torch.from_numpy(bias))
+    ref = pallas_gn(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias),
+                    interpret=True)
+    assert got.dtype == torch.float32 and got.shape == shape
+    for want in (plain.numpy(), np.asarray(ref)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
