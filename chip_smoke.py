@@ -25,6 +25,19 @@ every kernel of them against its plain PyTorch version:
   3. card/CPU - one fold step at batch 2, card bf16 against CPU f32;
   4. sim      - W8A8, activation qstate from 8 inputs, one f32 step at
                 batch 64 and a 10-step DDIM through the CLI.
+  calib       - the AdaRound weight pass through the CLI: `make-cali-data
+                --n 32 --timesteps 100`, `calibrate --weight-bit 4 --split
+                --cali-st 8 --cali-n 16 --cali-batch-size 32 --cali-iters
+                100` over all 38 units (reference: 256 x 20 samples,
+                20,000 iterations), `sample --engine fold --qstate <run
+                dir>/qstate.npz --n 64 --batch 64`; spies time each capture
+                and reconstruction, count B1 launches (none inside a
+                reconstruction; captures, trajectory and sample launch it)
+                and hold each unit's hard-rounded block error to 1.02x
+                nearest rounding's on its captured inputs, the sum strictly
+                lower; then up.3.block.0 reconstructed on the card and on
+                the CPU (50 iterations, same inputs and indices): losses
+                within 1e-3 relative, hard roundings 99.9 % equal.
   Stable Diffusion v1 (sd_v1 preset, full width, seeded random weights
   with no zero-initialised branch; no checkpoint or vocabulary needed):
   5. attn_kernels - B2 (flash_attention) at (8, 4096, 8, 40) and
@@ -159,6 +172,18 @@ STREAM_N, STREAM_BATCH = 2, 1  # SD stream CLI: batch-1 serving, CFG
 STREAM_N_W4 = 4  # W4 PLMS-50: batches 2-4 give repeated img/s in one run
 STREAM_REL = 1e-3  # B5/B6: the same bf16 products, summed in another order
 P_SHAPE = (2, 4096, 8, 40)  # P's (B, T, H, D), bench_flash_epilogue.py:112
+# calib: the AdaRound weight pass at full CIFAR width. The reference
+# calibrates on 256 samples x 20 steps with 20,000 iterations per unit;
+# the smoke cuts only those two: a 32-sample DDIM-100 trajectory, 16
+# samples at each of its 9 sampled steps (cali_st 8 slices every 12th of
+# 100 steps), 100 iterations per unit.
+CALIB_N, CALIB_ST, CALIB_CALI_N, CALIB_ITERS = 32, 8, 16, 100
+CALIB_BATCH = 32  # reconstruction minibatch (the reference's)
+RECON_BOUND = 1.02  # after <= 1.02 x before, tests/test_calibration.py:97
+CARD_CPU_UNIT = "up.3.block.0"  # a split up block (4x4, 512 -> 256)
+CARD_CPU_ITERS = 50
+CARD_CPU_LOSS_REL = 1e-3  # per-iteration loss, card against CPU
+CARD_CPU_FLIPS = 1e-3  # share of hard roundings that may differ
 
 
 def _emit(obj: dict):
@@ -603,6 +628,263 @@ def phase_profile(task, out: Path) -> dict:
         f"CIFAR-10 fold W4 bf16 step, batch {BATCH}")}
     _emit(row)
     return row
+
+
+# -- calibration: the AdaRound weight pass ----------------------------------
+
+def _block_mse(unit, qstate, inps, out, chunk: int = CALIB_BATCH) -> float:
+    """Mean squared error of the unit's hard-rounded forward (alphas where
+    qstate has them, nearest rounding elsewhere) on captured inputs."""
+    from qdiffusion_torch.quant.context import QuantCtx, QuantMode
+
+    ctx = QuantCtx(qstate, mode=QuantMode(w=True))
+    se, n = 0.0, 0
+    with torch.no_grad():
+        for i in range(0, out.shape[0], chunk):
+            pred = unit.apply(ctx, *(a[i:i + chunk] for a in inps))
+            se += float(((pred - out[i:i + chunk]).double() ** 2).sum())
+            n += pred.numel()
+    return se / n
+
+
+def _nearest(qstate: dict, unit) -> dict:
+    """qstate with the unit's own alphas removed: round-to-nearest there."""
+    return {s: ({k: {n: v for n, v in st.items() if n != "alpha"}
+                 for k, st in sl.items()} if s in unit.layer_names else sl)
+            for s, sl in qstate.items()}
+
+
+def _to(qstate: dict, dev) -> dict:
+    return {s: {k: {n: v.to(dev) for n, v in st.items()}
+                for k, st in sl.items()} for s, sl in qstate.items()}
+
+
+def phase_calib(task, work: Path, smi: str, check: Checks) -> dict:
+    """The weight pass through the CLI at full width (make-cali-data,
+    calibrate, sample --engine fold on its qstate), with spies around
+    the engine's captures and reconstructions: per-unit times, B1's
+    launches (none inside a reconstruction), and each unit's block error
+    with nearest and with learned hard rounding on its captured inputs.
+    Then one split up block reconstructed on the card and on the CPU
+    from the same inputs and minibatch indices."""
+    from qdiffusion_torch import cli
+    from qdiffusion_torch.calib import capture, engine
+    from qdiffusion_torch.ops.groupnorm import fused_group_norm
+
+    gn = fused_group_norm
+    work = work / "calib"
+    traj = work / "traj.npz"
+    gn.launches = 0
+    t0 = time.perf_counter()
+    made = cli.main(["make-cali-data", "--task", "cifar10", "--n",
+                     str(CALIB_N), "--timesteps", str(STEPS), "--out",
+                     str(traj), "--device", "cuda"])
+    make_s = time.perf_counter() - t0
+    launches = {"make_cali_data": gn.launches}
+    check(made["shapes"]["xs"] == (STEPS, CALIB_N, 32, 32, 3),
+          f"make-cali-data trajectory {made['shapes']}")
+    check(gn.launches == STEPS * 51,
+          f"make-cali-data: {gn.launches} B1 launches, expected "
+          f"{STEPS * 51}")
+
+    units, groups, kept = [], [], {}
+    count = {"capture": 0, "recon": 0, "error": 0}
+    real = (engine.reconstruct_unit, capture.GroupedCapture.fp_capture,
+            capture.GroupedCapture.quant_capture)
+
+    def timed(key, fn, *a, **kw):
+        torch.cuda.synchronize()
+        b0, t0 = gn.launches, time.perf_counter()
+        res = fn(*a, **kw)
+        torch.cuda.synchronize()
+        count[key] += gn.launches - b0
+        return res, time.perf_counter() - t0, gn.launches - b0
+
+    def fp_spy(self, group, *a, **kw):
+        res, sec, n = timed("capture", real[1], self, group, *a, **kw)
+        groups.append({"units": list(group), "fp_capture_s": sec,
+                       "b1_launches": n})
+        return res
+
+    def q_spy(self, qstate, name, *a, **kw):
+        res, sec, n = timed("capture", real[2], self, qstate, name, *a, **kw)
+        units.append({"unit": name, "asym_capture_s": sec,
+                      "capture_b1_launches": n})
+        return res
+
+    def recon_spy(model, qstate, unit, inps, target, cfg, **kw):
+        b0 = gn.launches
+        before = _block_mse(unit, _nearest(qstate, unit), inps, target)
+        count["error"] += gn.launches - b0
+        new, sec, n = timed("recon", real[0], model, qstate, unit, inps,
+                            target, cfg, **kw)
+        b0 = gn.launches
+        after = _block_mse(unit, new, inps, target)
+        count["error"] += gn.launches - b0
+        row = units[-1]
+        row.update(kind=unit.kind, samples=int(target.shape[0]),
+                   recon_s=sec, ms_per_iter=sec / cfg.iters * 1e3,
+                   recon_b1_launches=n, mse_nearest=before,
+                   mse_adaround=after, ratio=after / before)
+        if unit.name == CARD_CPU_UNIT:
+            kept.update(inps=tuple(a.cpu() for a in inps), out=target.cpu(),
+                        qstate=_to(qstate, "cpu"))
+        return new
+
+    engine.reconstruct_unit = recon_spy
+    capture.GroupedCapture.fp_capture = fp_spy
+    capture.GroupedCapture.quant_capture = q_spy
+    torch.cuda.reset_peak_memory_stats()
+    b0 = gn.launches
+    t0 = time.perf_counter()
+    try:
+        cal = cli.main([
+            "calibrate", "--task", "cifar10", "--cali-data", str(traj),
+            "--weight-bit", "4", "--split", "--cali-st", str(CALIB_ST),
+            "--cali-n", str(CALIB_CALI_N), "--cali-batch-size",
+            str(CALIB_BATCH), "--cali-iters", str(CALIB_ITERS),
+            "--run-dir", str(work / "run"), "--device", "cuda"])
+    finally:
+        engine.reconstruct_unit = real[0]
+        (capture.GroupedCapture.fp_capture,
+         capture.GroupedCapture.quant_capture) = real[1:]
+    calib_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches.update(calibrate=gn.launches - b0 - count["error"],
+                    captures=count["capture"], reconstructions=count["recon"])
+
+    ref = _seeded_model(task, "cpu", weight_bit=4, split=True)
+    check(len(units) == len(ref.units) and all("ratio" in r for r in units),
+          f"calibrate reconstructed {len(units)} of {len(ref.units)} units")
+    check(count["recon"] == 0, f"B1 launched {count['recon']} times inside "
+                               "the reconstruction loops")
+    check(count["capture"] > 0, "B1 not launched by the captures")
+    for r in units:
+        check(r.get("ratio", 2.0) <= RECON_BOUND,
+              f"{r['unit']}: hard-rounded block error {r.get('ratio')} x "
+              f"nearest, bound {RECON_BOUND}")
+    before = sum(r.get("mse_nearest", 0.0) for r in units)
+    after = sum(r.get("mse_adaround", 0.0) for r in units)
+    check(after < before, f"sum of block errors {after} not below nearest "
+                          f"rounding's {before}")
+    from qdiffusion_torch.utils.checkpoints import load_qstate
+
+    q = load_qstate(cal["path"])
+    missing = [n for n, c in ref.layer_cfgs.items()
+               for slot in (("w", "w0") if c.split else ("w",))
+               if "alpha" not in q.get(n, {}).get(slot, {})]
+    del ref
+    check(not missing, f"weight quantizers without alpha: {missing}")
+
+    b0 = gn.launches
+    res = cli.main(["sample", "--task", "cifar10", "--qstate", cal["path"],
+                    "--weight-bit", "4", "--split", "--engine", "fold",
+                    "--n", str(BATCH), "--batch", str(BATCH), "--npz-out",
+                    str(work / "fold.npz"), "--device", "cuda"])
+    launches["sample"] = gn.launches - b0
+    with np.load(res["path"]) as f:
+        imgs = f["arr_0"]
+    check(imgs.shape == (BATCH, 32, 32, 3) and imgs.dtype == np.uint8
+          and res["nonfinite"] == 0,
+          f"calibrated fold sample {imgs.shape} {imgs.dtype}, "
+          f"{res['nonfinite']} non-finite")
+    check(launches["sample"] == STEPS * 51,
+          f"calibrated fold sample: {launches['sample']} B1 launches")
+    launches["path"] = (launches["make_cali_data"] + launches["calibrate"]
+                        + launches["sample"])
+
+    card_cpu = _calib_card_vs_cpu(task, kept, check) if kept else None
+    check(card_cpu is not None, f"{CARD_CPU_UNIT} was not reconstructed")
+    kinds: dict = {}
+    for r in units:
+        if "ms_per_iter" in r:
+            kinds.setdefault(r["kind"], []).append(r["ms_per_iter"])
+    row = {"phase": "calib", "nvidia_smi": smi,
+           "reduced": {"calibration samples": f"{CALIB_CALI_N} x 9 steps "
+                       "(reference 256 x 20)", "iterations per unit":
+                       f"{CALIB_ITERS} (reference 20000)"},
+           "make_cali_data_s": make_s, "calibrate_s": calib_s,
+           "calibrate_cli_s": cal["seconds"], "samples": cal["samples"],
+           "peak_device_gb": peak_gb,
+           "ms_per_iter_by_kind": {k: {"median": float(np.median(v)),
+                                       "max": max(v), "units": len(v)}
+                                   for k, v in kinds.items()},
+           "capture_s": sum(g["fp_capture_s"] for g in groups)
+           + sum(r["asym_capture_s"] for r in units),
+           "recon_s": sum(r.get("recon_s", 0.0) for r in units),
+           "groups": groups, "units": units, "b1_launches": launches,
+           "mse_nearest_sum": before, "mse_adaround_sum": after,
+           "worst_ratio": max(r.get("ratio", 0.0) for r in units),
+           "sample_seconds": res["batch_seconds"],
+           "image_mean": float(imgs.mean()), "image_std": float(imgs.std()),
+           "card_vs_cpu": card_cpu}
+    _emit({k: v for k, v in row.items() if k not in ("units", "groups")})
+    for r in units:
+        _emit({"phase": "calib_unit", "nvidia_smi": smi, **r})
+    return row
+
+
+def _calib_card_vs_cpu(task, kept: dict, check: Checks) -> dict:
+    """reconstruct_unit for CARD_CPU_UNIT on the card and on the CPU from
+    the same captured inputs (copied to the CPU), the same qstate and the
+    same minibatch indices (drawn once, put in place of _batch_indices),
+    CARD_CPU_ITERS iterations: the per-iteration losses (read through the
+    loss function) and the learned hard roundings."""
+    from qdiffusion_torch.calib import recon
+
+    idx = torch.randint(0, kept["out"].shape[0], (CARD_CPU_ITERS,
+                                                  CALIB_BATCH),
+                        generator=torch.Generator().manual_seed(0))
+    cfg = recon.ReconConfig(iters=CARD_CPU_ITERS, batch_size=CALIB_BATCH)
+    real_idx, real_loss = recon._batch_indices, recon.recon_loss
+    res = {}
+    try:
+        recon._batch_indices = lambda i, n, bs, gen: idx[i]
+        for dev in ("cuda", "cpu"):
+            losses = []
+
+            def loss_spy(*a, **kw):
+                loss = real_loss(*a, **kw)
+                losses.append(loss.detach())
+                return loss
+
+            recon.recon_loss = loss_spy
+            model = _seeded_model(task, dev, weight_bit=4, split=True)
+            unit = next(u for u in model.units if u.name == CARD_CPU_UNIT)
+            t0 = time.perf_counter()
+            q = recon.reconstruct_unit(
+                model, _to(kept["qstate"], dev), unit,
+                tuple(a.to(dev).contiguous(memory_format=torch.channels_last)
+                      if a.ndim == 4 else a.to(dev) for a in kept["inps"]),
+                kept["out"].to(dev).contiguous(
+                    memory_format=torch.channels_last), cfg)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            res[dev] = (torch.stack(losses).cpu(),
+                        {(s, k): q[s][k]["alpha"].cpu()
+                         for s in unit.layer_names for k in q[s]},
+                        time.perf_counter() - t0)
+    finally:
+        recon._batch_indices, recon.recon_loss = real_idx, real_loss
+    (lc, ac, sc), (lp, ap, sp) = res["cuda"], res["cpu"]
+    loss_rel = float(((lc - lp).abs() / lp.abs()).max())
+    n = flips = 0
+    alpha_diff = 0.0
+    for key, a in ap.items():
+        n += a.numel()
+        flips += int(((ac[key] >= 0) != (a >= 0)).sum())
+        alpha_diff = max(alpha_diff, float((ac[key] - a).abs().max()))
+    check(len(lc) == CARD_CPU_ITERS and loss_rel <= CARD_CPU_LOSS_REL,
+          f"{CARD_CPU_UNIT} card vs CPU: per-iteration loss relative "
+          f"difference {loss_rel}, limit {CARD_CPU_LOSS_REL}")
+    check(flips <= CARD_CPU_FLIPS * n,
+          f"{CARD_CPU_UNIT} card vs CPU: {flips} of {n} hard roundings "
+          "differ")
+    return {"unit": CARD_CPU_UNIT, "iters": CARD_CPU_ITERS,
+            "loss_rel_max": loss_rel, "loss_first": float(lp[0]),
+            "loss_last": float(lp[-1]), "flip_share": flips / n,
+            "weights": n, "alpha_abs_diff_max": alpha_diff,
+            "card_s": sc, "cpu_s": sp}
 
 
 # -- Stable Diffusion v1 ------------------------------------------------------
@@ -2076,6 +2358,10 @@ def main(argv=None) -> int:
     prof = phase_profile(task, out) if args.profile else None
     torch.cuda.empty_cache()
 
+    # CIFAR-10 calibration, slice 8's path: the AdaRound weight pass
+    calib = phase_calib(task, work, smi, check)
+    torch.cuda.empty_cache()
+
     # Stable Diffusion v1, slice 2's path
     gn_unet = phase_kernels(spy["unet_gn_shapes"], check, designs,
                             phase="gn_sd", where="sd_v1 UNet call")
@@ -2129,6 +2415,7 @@ def main(argv=None) -> int:
              "cifar10_fold": fold["group_norm_launches"],
              "sd_v1_fold": sd_launches["group_norm"],
              "cifar10_int8": int8_cli["launches"]["group_norm"],
+             "cifar10_calib": calib["b1_launches"]["path"],
              "sd_v1_stream_w4": sd_stream[4]["launches"]["group_norm"],
              "sd_v1_stream_w8": sd_stream[8]["launches"]["group_norm"]},
          "cifar10_step_ms": per_call_sum(rows, "ms"),
@@ -2201,7 +2488,7 @@ def main(argv=None) -> int:
               "ptxas": ptxas,
               "kernels": kernels, "kernel_shapes": rows, "gn_sd": gn_sd,
               "attn_kernels": attn, "fold": fold, "card_vs_cpu": card_cpu,
-              "sim": sim, "profile": prof, "sd_spy": {
+              "sim": sim, "profile": prof, "calib": calib, "sd_spy": {
                   k: v for k, v in spy.items() if not k.endswith("shapes")},
               "sd_files": files, "sd_fold": sd_fold,
               "sd_card_vs_cpu": sd_cpu, "sd_sim": sd_sim,

@@ -1,5 +1,14 @@
-"""Command-line entry point of the port (the `sample` subcommand of
-qdiffusion_tpu/cli.py for the pixel, ldm and sd families):
+"""Command-line entry point of the port: the `sample` subcommand of
+qdiffusion_tpu/cli.py for the pixel, ldm and sd families, and the weight
+pass of `make-cali-data` and `calibrate` for the pixel family:
+
+  python -m qdiffusion_torch.cli make-cali-data --task cifar10 \\
+      --n 256 --out cali/traj.npz
+  python -m qdiffusion_torch.cli calibrate --task cifar10 \\
+      --cali-data cali/traj.npz --weight-bit 4 --split --logdir logs
+  python -m qdiffusion_torch.cli sample --task cifar10 \\
+      --qstate logs/calib-cifar10-<time>/qstate.npz --weight-bit 4 \\
+      --split --engine fold
 
   python -m qdiffusion_torch.cli sample --task cifar10 \\
       --qstate qstate.npz --weight-bit 4 --engine fold --dtype bfloat16 \\
@@ -25,13 +34,24 @@ SD conditioning comes from --token-ids (an npz with 'cond' (P, 77) and
 'uncond' (1, 77) CLIP ids, cli.py:159-163); --prompt and the tokenizer
 are not ported. The output is the bulk uint8 npz of the JAX CLI
 (N x H x W x C); PNG output is not ported.
+
+make-cali-data writes the FP sampling trajectory (JAX keys "xs" [S, B,
+H, W, C] and "ts" [S, B]); its initial noise is drawn per item as
+`sample` draws it. calibrate runs the AdaRound weight pass
+(calib/engine.py) and writes <run dir>/qstate.npz in the JAX layout,
+which `sample --qstate` and the JAX package both read. The activation
+pass (--quant-act), --resume-w and the latent tasks exit with a message:
+they are ROADMAP A4b.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import logging
 import time
+from datetime import datetime
 from pathlib import Path
 
 import numpy as np
@@ -162,6 +182,103 @@ def _item_noise(seeds, shape) -> torch.Tensor:
     return torch.stack([
         torch.randn(shape, generator=torch.Generator().manual_seed(int(s)))
         for s in seeds])
+
+
+A4B = "ROADMAP A4b (not ported yet; the port calibrates weights only)"
+
+
+def _pixel_only(task, what: str):
+    if task.family != "pixel":
+        raise SystemExit(f"{what} for a {task.family} task is {A4B}")
+
+
+def cmd_make_cali_data(args) -> dict:
+    device = resolve_device(args.device)
+    task = resolve_task(args)
+    _pixel_only(task, "make-cali-data")
+    model, pipe = build_model_and_pipeline(task, device=device)
+    model.load_state_dict(load_fp_params(args.ckpt, model) if args.ckpt
+                          else model.init_params(0))
+    seeds = np.arange(args.n, dtype=np.int64) \
+        + np.int64(args.seed) * 1000003
+    x0 = _item_noise(seeds, (task.image_size, task.image_size,
+                             task.channels)).to(device)
+    t0 = time.perf_counter()
+    _, traj = pipe.sample(args.n, timesteps=args.timesteps
+                          or task.sampler.timesteps,
+                          skip_type=task.sampler.skip_type,
+                          eta=task.sampler.eta, x_init=x0,
+                          return_trajectory=True)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(out, **{k: v.cpu().numpy() for k, v in traj.items()})
+    shapes = {k: tuple(v.shape) for k, v in traj.items()}
+    print(f"saved trajectory {shapes} -> {out} ({seconds:.3f} s on "
+          f"{device})")
+    return {"path": str(out), "shapes": shapes, "seconds": seconds}
+
+
+def cmd_calibrate(args) -> dict:
+    from qdiffusion_torch.calib.engine import calibrate
+    from qdiffusion_torch.calib.samples import get_train_samples
+    from qdiffusion_torch.config import QuantFlags
+    from qdiffusion_torch.utils.checkpoints import save_qstate
+
+    if args.quant_act:
+        raise SystemExit(f"--quant-act: the activation pass is {A4B}")
+    if args.resume_w:
+        raise SystemExit(f"--resume-w: resuming into the activation pass "
+                         f"is {A4B}")
+    task = resolve_task(args)
+    _pixel_only(task, "calibrate")
+    device = resolve_device(args.device)
+    qflags = QuantFlags(
+        weight_bit=args.weight_bit, split=args.split, cali_st=args.cali_st,
+        cali_n=args.cali_n, cali_batch_size=args.cali_batch_size,
+        cali_iters=args.cali_iters, alpha_dtype=args.alpha_dtype,
+        capture_group_bytes=int(args.capture_group_mb) << 20)
+    run_dir = Path(args.run_dir) if args.run_dir else Path(args.logdir) \
+        / f"calib-{task.name}-{datetime.now():%Y-%m-%d-%H-%M-%S}"
+    run_dir.mkdir(parents=True, exist_ok=True)
+    (run_dir / "calib_config.json").write_text(json.dumps(
+        {"task": task.name, "quant": dataclasses.asdict(qflags),
+         "args": vars(args)}, default=str, indent=2))
+    log = logging.FileHandler(run_dir / "run.log")
+    log.setFormatter(logging.Formatter(
+        "%(asctime)s - %(name)s - %(levelname)s - %(message)s"))
+    root = logging.getLogger()
+    root.addHandler(log)
+    level = root.level
+    root.setLevel(logging.INFO)
+    try:
+        model, _ = build_model_and_pipeline(task, qflags, device)
+        model.load_state_dict(load_fp_params(args.ckpt, model) if args.ckpt
+                              else model.init_params(0))
+        with np.load(args.cali_data) as data:
+            traj = {k: torch.from_numpy(data[k]).to(device)
+                    for k in ("xs", "ts")}
+        cali = get_train_samples(traj, qflags.cali_n, qflags.cali_st)
+        del traj
+        logging.getLogger(__name__).info(
+            "calibration data: %s", [tuple(c.shape) for c in cali])
+        t0 = time.perf_counter()
+        qstate = calibrate(model, cali, qflags.calib_config(),
+                           torch.Generator(device=device).manual_seed(
+                               args.seed))
+        _sync(device)
+        seconds = time.perf_counter() - t0
+        path = run_dir / "qstate.npz"
+        save_qstate(path, qstate)
+    finally:
+        root.removeHandler(log)
+        root.setLevel(level)
+        log.close()
+    print(f"calibrated quantizer state -> {path} ({seconds:.3f} s on "
+          f"{device})")
+    return {"path": str(path), "run_dir": str(run_dir), "seconds": seconds,
+            "samples": int(cali[0].shape[0])}
 
 
 def _sync(device):
@@ -340,6 +457,48 @@ def main(argv=None):
                     help="torch device (default cuda; 'cpu' to run on the "
                          "host)")
     sp.set_defaults(fn=cmd_sample)
+
+    sp = sub.add_parser("make-cali-data",
+                        help="FP sampling trajectory for calibration")
+    sp.add_argument("--task", required=True)
+    sp.add_argument("--ckpt", help="FP UNet params npz (JAX save_pytree "
+                                   "format)")
+    sp.add_argument("--n", type=int, default=256)
+    sp.add_argument("--timesteps", type=int)
+    sp.add_argument("--seed", type=int, default=1234)
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--device", default="cuda")
+    sp.set_defaults(fn=cmd_make_cali_data)
+
+    sp = sub.add_parser("calibrate",
+                        help="AdaRound weight calibration -> qstate.npz")
+    sp.add_argument("--task", required=True)
+    sp.add_argument("--ckpt", help="FP UNet params npz (JAX save_pytree "
+                                   "format)")
+    sp.add_argument("--cali-data", required=True)
+    sp.add_argument("--resume-w", help="weight-pass qstate to resume the "
+                                       "activation pass from (A4b)")
+    sp.add_argument("--weight-bit", type=int, default=8)
+    sp.add_argument("--quant-act", action="store_true",
+                    help="the activation pass (A4b)")
+    sp.add_argument("--split", action="store_true")
+    sp.add_argument("--cali-st", type=int, default=20)
+    sp.add_argument("--cali-n", type=int, default=256)
+    sp.add_argument("--cali-batch-size", type=int, default=32)
+    sp.add_argument("--cali-iters", type=int, default=20000)
+    sp.add_argument("--capture-group-mb", type=int, default=3072,
+                    help="grouped-capture residency cap in MB")
+    sp.add_argument("--alpha-dtype", choices=("float32", "bfloat16"),
+                    default="float32",
+                    help="AdaRound alpha storage dtype; the optimisation "
+                         "runs in float32 either way")
+    sp.add_argument("--logdir", default="logs")
+    sp.add_argument("--run-dir", default=None,
+                    help="write into this run directory instead of a new "
+                         "timestamped one under --logdir")
+    sp.add_argument("--seed", type=int, default=1234)
+    sp.add_argument("--device", default="cuda")
+    sp.set_defaults(fn=cmd_calibrate)
     args = p.parse_args(argv)
     return args.fn(args)
 

@@ -2,13 +2,18 @@
 qdiffusion_tpu/config.py). `cifar10` reproduces the reference's
 configs/cifar10.yml with the sample_diffusion_ddim.py defaults; `sd_v1`
 its configs/stable-diffusion/v1-inference.yaml with the txt2img.py
-sampler (PLMS-50, guidance 7.5). The LSUN presets are not ported."""
+sampler (PLMS-50, guidance 7.5). The LSUN presets are not ported.
+QuantFlags carries the weight pass's calibration flags; the activation
+pass's (cali_iters_a, cali_lr, cali_p, running_stat, rs_sm_only,
+act_init_batch) come with it (ROADMAP A4b)."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+from qdiffusion_torch.calib.engine import CalibConfig
+from qdiffusion_torch.calib.recon import ReconConfig
 from qdiffusion_torch.models.clip_text import CLIPTextConfig
 from qdiffusion_torch.models.unet_ddim import DDIMUNetConfig, QuantPolicy
 from qdiffusion_torch.models.unet_ldm import LDMQuantPolicy, LDMUNetConfig
@@ -45,6 +50,19 @@ class QuantFlags:
     sm_abit: int = 8
     split: bool = False
     a_min_max: bool = False  # LDM: act scale init 'max' instead of 'mse'
+    cali_st: int = 20  # trajectory steps the calibration set samples
+    cali_n: int = 256  # samples per step
+    cali_batch_size: int = 32  # reconstruction minibatch
+    cali_iters: int = 20000  # reconstruction iterations per unit
+    capture_group_bytes: int = 3 << 30  # grouped-capture residency cap
+    alpha_dtype: str = "float32"  # AdaRound alpha storage dtype
+
+    def calib_config(self) -> CalibConfig:
+        return CalibConfig(
+            weight=ReconConfig(iters=self.cali_iters,
+                               batch_size=self.cali_batch_size, p=2.0),
+            quant_act=self.quant_act, alpha_dtype=self.alpha_dtype,
+            capture_group_bytes=self.capture_group_bytes)
 
     def policy_ddim(self) -> QuantPolicy:
         """CIFAR policy: 'max' scale methods

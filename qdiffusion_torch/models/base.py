@@ -5,19 +5,23 @@ A model registers, while it builds its submodules:
   * one LayerQuantConfig per quantizable conv/linear, keyed by the
     layer's state_dict path (which is also the quant site name), and
   * the ordered ReconUnit list: the reconstruction targets of the
-    reference's named_children DFS. Calibration is not ported yet; the
-    units are kept as bookkeeping so its order is fixed and tested now.
+    reference's named_children DFS, each with a standalone `apply` that
+    calibration (calib/) replays on captured inputs. The forward calls
+    every unit through `_unit_call`, which records the unit's (input,
+    output) when the ctx captures it. LDMUNet registers its units without
+    `apply` (its calibration is not ported yet).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from qdiffusion_torch.ops.qlayers import LayerQuantConfig
+from qdiffusion_torch.quant.context import QuantCtx
 
 
 @dataclasses.dataclass
@@ -28,6 +32,14 @@ class ReconUnit:
     kind: str  # 'layer' | 'resnet' | 'attn'
     layer_names: List[str]  # quantizable conv/linear sites inside
     takes_temb: bool = False
+    # standalone forward (ctx, *inputs) -> out; the weights are the
+    # model's own modules, so no params argument (JAX base.py:27)
+    apply: Optional[Callable] = None
+    # dim the reconstruction Lp loss sums: 1, the channels of the port's
+    # NCHW activations (JAX sums axis -1 of NHWC); -1 for (B, C) units
+    loss_axis: int = -1
+    # block-level act-quant sites beyond `name` (JAX base.py:33-35)
+    extra_sites: List[str] = dataclasses.field(default_factory=list)
 
 
 class Params(torch.nn.Module):
@@ -94,6 +106,13 @@ class QuantModelBase(torch.nn.Module):
                                split=split)
         self._layer_cfgs[name] = cfg
         return cfg
+
+    def _unit_call(self, ctx: QuantCtx, name: str, fn: Callable, *inps):
+        """fn(*inps), recorded into ctx when `name` is a capture target
+        (JAX base.py:56-63; the Fisher `substitute` is not ported)."""
+        out = fn(*inps)
+        ctx.capture_io(name, inps if len(inps) > 1 else inps[0], out)
+        return out
 
     @property
     def units(self) -> List[ReconUnit]:

@@ -13,11 +13,21 @@ explicit asymmetric pad).
 
 The forward takes and returns NHWC like the JAX model; inside,
 activations are NCHW in channels_last memory format.
+
+Every reconstruction unit is called through `_unit_call` in the JAX
+forward's order (unet_ddim.py:295-349), with the JAX unit boundaries: a
+Downsample unit takes the already padded input, an Upsample unit the
+already upsampled one, `temb.dense.1` the swished embedding, `conv_out`
+the normalised output, an up block the concatenated (h, skip). A unit's
+`apply` is a bound method of its module (so a deepcopy of the model
+calls its own weights). Under a differentiable ctx the GroupNorms take
+the plain PyTorch form, since kernel B1 has no backward.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -80,9 +90,9 @@ class GroupNorm(Module):
         self.bias = torch.nn.Parameter(torch.zeros(channels))
         self.swish = swish
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fused_ok: bool = True) -> torch.Tensor:
         fn = nn.group_norm_swish if self.swish else nn.group_norm
-        return fn(x, self.weight, self.bias)
+        return fn(x, self.weight, self.bias, fused_ok=fused_ok)
 
 
 class ResnetBlock(Module):
@@ -108,15 +118,19 @@ class ResnetBlock(Module):
                                               split=split)
             layers.append(f"{name}.nin_shortcut")
         model._units.append(ReconUnit(name, "resnet", layers,
-                                      takes_temb=True))
+                                      takes_temb=True, apply=self.apply,
+                                      loss_axis=1))
+
+    def apply(self, ctx: QuantCtx, x, temb):
+        return self(x, temb, ctx)
 
     def forward(self, x, temb, ctx: QuantCtx):
-        n = self.name
-        h = qconv2d(ctx, f"{n}.conv1", self.conv1, self.norm1(x),
+        n, fused = self.name, not ctx.differentiable
+        h = qconv2d(ctx, f"{n}.conv1", self.conv1, self.norm1(x, fused),
                     self.q_conv1, padding=1)
         t = qdense(ctx, f"{n}.temb_proj", self.temb_proj, nn.swish(temb),
                    self.q_temb_proj)
-        h = self.norm2(h + t[:, :, None, None])
+        h = self.norm2(h + t[:, :, None, None], fused)
         h = qconv2d(ctx, f"{n}.conv2", self.conv2, h, self.q_conv2,
                     padding=1)
         if self.in_ch != self.out_ch:
@@ -141,11 +155,15 @@ class AttnBlock(Module):
             setattr(self, f"q_{leaf}", model._lcfg(f"{name}.{leaf}"))
         model._units.append(ReconUnit(
             name, "attn",
-            [f"{name}.{leaf}" for leaf in ("q", "k", "v", "proj_out")]))
+            [f"{name}.{leaf}" for leaf in ("q", "k", "v", "proj_out")],
+            apply=self.apply, loss_axis=1))
+
+    def apply(self, ctx: QuantCtx, x):
+        return self(x, ctx)
 
     def forward(self, x, ctx: QuantCtx):
         n, pol = self.name, self.policy
-        h = self.norm(x)
+        h = self.norm(x, not ctx.differentiable)
         q = qconv2d(ctx, f"{n}.q", self.q, h, self.q_q)
         k = qconv2d(ctx, f"{n}.k", self.k, h, self.q_k)
         v = qconv2d(ctx, f"{n}.v", self.v, h, self.q_v)
@@ -162,6 +180,10 @@ class AttnBlock(Module):
 
 
 class Downsample(Module):
+    """The stride-2 3x3 conv after the (0,1,0,1) pad, or a 2x2 average
+    pool. The unit `{name}.conv` takes the padded input (JAX
+    unet_ddim.py:319)."""
+
     def __init__(self, model: "DDIMUNet", name: str, ch: int):
         super().__init__()
         self.name = name
@@ -169,17 +191,24 @@ class Downsample(Module):
             self.conv = torch.nn.Conv2d(ch, ch, 3, stride=2)
             self.q_conv = model._lcfg(f"{name}.conv")
             model._units.append(ReconUnit(f"{name}.conv", "layer",
-                                          [f"{name}.conv"]))
+                                          [f"{name}.conv"],
+                                          apply=self.apply, loss_axis=1))
 
-    def forward(self, x, ctx: QuantCtx):
+    def apply(self, ctx: QuantCtx, xpad):
+        return qconv2d(ctx, f"{self.name}.conv", self.conv, xpad,
+                       self.q_conv, stride=2)
+
+    def forward(self, x, ctx: QuantCtx, call):
         if not hasattr(self, "conv"):
             return nn.avg_pool_2x(x)
-        return qconv2d(ctx, f"{self.name}.conv", self.conv,
-                       nn.pad_asymmetric_downsample(x), self.q_conv,
-                       stride=2)
+        return call(f"{self.name}.conv", self.apply,
+                    nn.pad_asymmetric_downsample(x))
 
 
 class Upsample(Module):
+    """Nearest 2x, then optionally a 3x3 conv; the unit `{name}.conv`
+    takes the upsampled input (JAX unet_ddim.py:340-343)."""
+
     def __init__(self, model: "DDIMUNet", name: str, ch: int):
         super().__init__()
         self.name = name
@@ -187,14 +216,18 @@ class Upsample(Module):
             self.conv = torch.nn.Conv2d(ch, ch, 3, padding=1)
             self.q_conv = model._lcfg(f"{name}.conv")
             model._units.append(ReconUnit(f"{name}.conv", "layer",
-                                          [f"{name}.conv"]))
+                                          [f"{name}.conv"],
+                                          apply=self.apply, loss_axis=1))
 
-    def forward(self, x, ctx: QuantCtx):
+    def apply(self, ctx: QuantCtx, x):
+        return qconv2d(ctx, f"{self.name}.conv", self.conv, x, self.q_conv,
+                       padding=1)
+
+    def forward(self, x, ctx: QuantCtx, call):
         x = nn.upsample_nearest_2x(x)
         if not hasattr(self, "conv"):
             return x
-        return qconv2d(ctx, f"{self.name}.conv", self.conv, x, self.q_conv,
-                       padding=1)
+        return call(f"{self.name}.conv", self.apply, x)
 
 
 def _level() -> Module:
@@ -230,9 +263,14 @@ class DDIMUNet(QuantModelBase):
         self.temb.dense = ModuleList([Linear(cfg.ch, cfg.temb_ch),
                                       Linear(cfg.temb_ch, cfg.temb_ch)])
         self.conv_in = Conv2d(cfg.in_channels, cfg.ch, 3, padding=1)
-        for nm in ("temb.dense.0", "temb.dense.1", "conv_in"):
+        for nm in ("temb.dense.0", "temb.dense.1"):
             self._lcfg(nm)
-            self._units.append(ReconUnit(nm, "layer", [nm]))
+            self._units.append(ReconUnit(nm, "layer", [nm], apply=functools.
+                                         partial(self._dense_unit, nm)))
+        self._lcfg("conv_in")
+        self._units.append(ReconUnit(
+            "conv_in", "layer", ["conv_in"], loss_axis=1,
+            apply=functools.partial(self._conv_unit, "conv_in")))
 
         # static channel plan: reference constructor diffusion.py:238-298
         self.down = ModuleList()
@@ -291,8 +329,18 @@ class DDIMUNet(QuantModelBase):
         self.norm_out = GroupNorm(block_in, swish=True)
         self.conv_out = Conv2d(block_in, cfg.out_ch, 3, padding=1)
         self._lcfg("conv_out")
-        self._units.append(ReconUnit("conv_out", "layer", ["conv_out"]))
+        self._units.append(ReconUnit(
+            "conv_out", "layer", ["conv_out"], loss_axis=1,
+            apply=functools.partial(self._conv_unit, "conv_out")))
         self._order_units()
+
+    def _dense_unit(self, name: str, ctx: QuantCtx, x):
+        return qdense(ctx, name, self.get_submodule(name), x,
+                      self._layer_cfgs[name])
+
+    def _conv_unit(self, name: str, ctx: QuantCtx, x):
+        return qconv2d(ctx, name, self.get_submodule(name), x,
+                       self._layer_cfgs[name], padding=1)
 
     def _order_units(self):
         """Reference named_children DFS order: temb, conv_in, then per
@@ -321,38 +369,46 @@ class DDIMUNet(QuantModelBase):
         timesteps. Returns NHWC."""
         ctx = ctx or QuantCtx()
         cfg = self.cfg
+
+        def call(name, fn, *inps):
+            """Unit `name`: fn(ctx, *inps), captured when ctx asks."""
+            return self._unit_call(ctx, name, functools.partial(fn, ctx),
+                                   *inps)
+
+        def layer(name, *inps):
+            fn = self._dense_unit if name.startswith("temb.") \
+                else self._conv_unit
+            return call(name, functools.partial(fn, name), *inps)
+
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         temb = nn.timestep_embedding(t, cfg.ch).to(x.dtype)
-        temb = qdense(ctx, "temb.dense.0", self.temb.dense[0], temb,
-                      self._layer_cfgs["temb.dense.0"])
-        temb = qdense(ctx, "temb.dense.1", self.temb.dense[1],
-                      nn.swish(temb), self._layer_cfgs["temb.dense.1"])
+        temb = layer("temb.dense.0", temb)
+        temb = layer("temb.dense.1", nn.swish(temb))
 
-        hs = [qconv2d(ctx, "conv_in", self.conv_in, x,
-                      self._layer_cfgs["conv_in"], padding=1)]
+        hs = [layer("conv_in", x)]
         for level in self.down:
             for j, block in enumerate(level.block):
-                h = block(hs[-1], temb, ctx)
+                h = call(block.name, block.apply, hs[-1], temb)
                 if len(level.attn):
-                    h = level.attn[j](h, ctx)
+                    h = call(level.attn[j].name, level.attn[j].apply, h)
                 hs.append(h)
             if hasattr(level, "downsample"):
-                hs.append(level.downsample(hs[-1], ctx))
+                hs.append(level.downsample(hs[-1], ctx, call))
 
-        h = self.mid.block_1(hs[-1], temb, ctx)
-        h = self.mid.attn_1(h, ctx)
-        h = self.mid.block_2(h, temb, ctx)
+        h = call("mid.block_1", self.mid.block_1.apply, hs[-1], temb)
+        h = call("mid.attn_1", self.mid.attn_1.apply, h)
+        h = call("mid.block_2", self.mid.block_2.apply, h, temb)
 
         for level in reversed(self.up):
             for j, block in enumerate(level.block):
-                h = block(torch.cat([h, hs.pop()], dim=1), temb, ctx)
+                h = call(block.name, block.apply,
+                         torch.cat([h, hs.pop()], dim=1), temb)
                 if len(level.attn):
-                    h = level.attn[j](h, ctx)
+                    h = call(level.attn[j].name, level.attn[j].apply, h)
             if hasattr(level, "upsample"):
-                h = level.upsample(h, ctx)
+                h = level.upsample(h, ctx, call)
 
-        h = qconv2d(ctx, "conv_out", self.conv_out, self.norm_out(h),
-                    self._layer_cfgs["conv_out"], padding=1)
+        h = layer("conv_out", self.norm_out(h, not ctx.differentiable))
         return h.permute(0, 2, 3, 1)
 
     def init_params(self, seed: int = 0) -> dict:

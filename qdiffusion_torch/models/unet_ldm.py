@@ -312,11 +312,13 @@ class LDMUNet(QuantModelBase):
     # -- forward pieces ----------------------------------------------------
 
     def _use_blockwise(self, ctx: QuantCtx, key_len: int) -> bool:
-        # calibration passes (collect) always materialize, and the int8
+        # calibration passes (collect, differentiable forwards: the
+        # kernels have no backward) always materialize, and the int8
         # engine keeps its integer attention products, as in the JAX
         # package (unet_ldm.py:159-163)
         return (self.flash_threshold > 0 and key_len >= self.flash_threshold
-                and ctx.collect is None and ctx.engine != "int8")
+                and ctx.collect is None and not ctx.differentiable
+                and ctx.engine != "int8")
 
     def _conv(self, ctx, name, x, *, stride=1, padding=1):
         return qconv2d(ctx, name, self._mods[name], x,
@@ -332,7 +334,9 @@ class LDMUNet(QuantModelBase):
 
     def _resblock(self, ctx: QuantCtx, x, emb, plan: dict):
         n = plan["name"]
-        h = nn.group_norm_swish(x, *self._norm(f"{n}.in_layers.0"), eps=1e-5)
+        fused = not ctx.differentiable
+        h = nn.group_norm_swish(x, *self._norm(f"{n}.in_layers.0"), eps=1e-5,
+                                fused_ok=fused)
         if plan["updown"] == "up":
             h, x = nn.upsample_nearest_2x(h), nn.upsample_nearest_2x(x)
         elif plan["updown"] == "down":
@@ -341,13 +345,14 @@ class LDMUNet(QuantModelBase):
         emb_out = self._dense(ctx, f"{n}.emb_layers.1", nn.swish(emb))
         if plan["scale_shift"]:
             scale, shift = emb_out.chunk(2, dim=-1)
-            h = nn.group_norm(h, *self._norm(f"{n}.out_layers.0"), eps=1e-5)
+            h = nn.group_norm(h, *self._norm(f"{n}.out_layers.0"), eps=1e-5,
+                              fused_ok=fused)
             h = nn.swish(h * (1 + scale[:, :, None, None])
                          + shift[:, :, None, None])
         else:
             h = nn.group_norm_swish(h + emb_out[:, :, None, None],
                                     *self._norm(f"{n}.out_layers.0"),
-                                    eps=1e-5)
+                                    eps=1e-5, fused_ok=fused)
         h = self._conv(ctx, f"{n}.out_layers.3", h)
         if plan["skip"] == "identity":
             return x + h
@@ -360,7 +365,10 @@ class LDMUNet(QuantModelBase):
         heads = plan["heads"]
         ch = c // heads
         xt = _to_tokens(x)
-        h = fused_group_norm(xt, *self._norm(f"{n}.norm"), eps=1e-5)
+        h = _to_tokens(nn.group_norm(x, *self._norm(f"{n}.norm"), eps=1e-5,
+                                     fused_ok=False)) \
+            if ctx.differentiable else \
+            fused_group_norm(xt, *self._norm(f"{n}.norm"), eps=1e-5)
         qkv = qconv1d(ctx, f"{n}.qkv", self._mods[f"{n}.qkv"], h,
                       self._layer_cfgs[f"{n}.qkv"])
         t = qkv.shape[1]
@@ -437,7 +445,8 @@ class LDMUNet(QuantModelBase):
     def _spatial_transformer(self, ctx: QuantCtx, x, context, plan: dict):
         n = plan["name"]
         _, _, hh, ww = x.shape
-        h = nn.group_norm(x, *self._norm(f"{n}.norm"))  # eps 1e-6
+        h = nn.group_norm(x, *self._norm(f"{n}.norm"),  # eps 1e-6
+                          fused_ok=not ctx.differentiable)
         h = _to_tokens(self._conv(ctx, f"{n}.proj_in", h, padding=0))
         for d in range(plan["depth"]):
             h = self._transformer_block(ctx, h, context,
@@ -482,7 +491,8 @@ class LDMUNet(QuantModelBase):
         for entry in self.output_plan:
             h = self._apply_entry(ctx, entry, torch.cat([h, hs.pop()], dim=1),
                                   emb, context)
-        h = nn.group_norm_swish(h, *self._norm("out.0"), eps=1e-5)
+        h = nn.group_norm_swish(h, *self._norm("out.0"), eps=1e-5,
+                                fused_ok=not ctx.differentiable)
         return self._conv(ctx, "out.2", h).permute(0, 2, 3, 1)
 
     def init_params(self, seed: int = 0) -> dict:

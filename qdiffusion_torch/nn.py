@@ -38,21 +38,36 @@ def dense(x: torch.Tensor, w: torch.Tensor,
 
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
-               num_groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
+               num_groups: int = 32, eps: float = 1e-6,
+               fused_ok: bool = True) -> torch.Tensor:
     """GroupNorm over NCHW (channels_last) with f32 statistics; the result
-    in x's dtype. Every call goes through ops.groupnorm.fused_group_norm:
-    the B1 kernel on the card, its plain version on the CPU."""
-    y = fused_group_norm(x.permute(0, 2, 3, 1), scale, bias,
-                         num_groups=num_groups, eps=eps)
-    return y.permute(0, 3, 1, 2)
+    in x's dtype.
+
+    fused_ok=True: ops.groupnorm.fused_group_norm, the B1 kernel on the
+    card (no backward) and its plain version on the CPU. fused_ok=False:
+    the differentiable PyTorch form of JAX nn.py:106-115 (mean, then the
+    variance as jnp.var takes it, mean((x - mean)^2)). Models pass
+    `fused_ok=not ctx.differentiable`, as the JAX models do."""
+    if fused_ok:
+        y = fused_group_norm(x.permute(0, 2, 3, 1), scale, bias,
+                             num_groups=num_groups, eps=eps)
+        return y.permute(0, 3, 1, 2)
+    b, c = x.shape[:2]
+    xg = x.float().reshape(b, num_groups, c // num_groups, -1)
+    mean = xg.mean(dim=(2, 3), keepdim=True)
+    var = ((xg - mean) ** 2).mean(dim=(2, 3), keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    y = y * scale.float()[:, None, None] + bias.float()[:, None, None]
+    return y.to(x.dtype)
 
 
 def group_norm_swish(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                     *, num_groups: int = 32, eps: float = 1e-6
-                     ) -> torch.Tensor:
+                     *, num_groups: int = 32, eps: float = 1e-6,
+                     fused_ok: bool = True) -> torch.Tensor:
     """swish(group_norm(x)); the swish stays outside the kernel, as in the
     JAX package (nn.py:126-138)."""
-    return swish(group_norm(x, scale, bias, num_groups=num_groups, eps=eps))
+    return swish(group_norm(x, scale, bias, num_groups=num_groups, eps=eps,
+                            fused_ok=fused_ok))
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,

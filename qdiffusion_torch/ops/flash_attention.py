@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from qdiffusion_torch.ops import refuse_grad
 from qdiffusion_torch.quant.affine import AffineQuantizerSpec, fake_quant
 
 __all__ = ["bucket_flip_share", "flash_attention", "flash_attention_plain",
@@ -147,7 +148,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def check_inputs(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """Device, dtype, shape and layout checks of the CUDA wrappers."""
+    """Device, dtype, shape and layout checks of the CUDA wrappers; in
+    grad mode no input may require grad (the kernels have no backward)."""
+    refuse_grad(fn, q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -206,7 +209,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     sm_q / v_q: optional (state, spec) pairs of the softmax and V
     quantizers. CPU tensor: the plain version. CUDA tensor: the kernel,
-    or a ValueError for what it does not take. Each kernel launch adds
+    or a ValueError for what it does not take (a RuntimeError for an
+    input that requires grad in grad mode). Each kernel launch adds
     one to `flash_attention.launches` (and to `.launches_sm_q` when the
     softmax quantizer is on)."""
     if q.device.type == "cpu":

@@ -93,7 +93,8 @@ def streaming_flash_attention(q: torch.Tensor, k: torch.Tensor,
     """q: (B, T, H, D); k, v: (B, S, H, D) -> (B, T, H, D); any S.
 
     CPU tensor: the plain version. CUDA tensor: the kernel, or a
-    ValueError for what it does not take. Each kernel launch adds one to
+    ValueError for what it does not take (a RuntimeError for an input
+    that requires grad in grad mode). Each kernel launch adds one to
     `streaming_flash_attention.launches`."""
     if q.device.type == "cpu":
         return streaming_flash_attention_plain(q, k, v, scale=scale,

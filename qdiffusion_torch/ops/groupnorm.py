@@ -47,6 +47,7 @@ from typing import NamedTuple
 import torch
 
 from qdiffusion_torch.device import sm_count
+from qdiffusion_torch.ops import refuse_grad
 
 __all__ = ["fused_group_norm", "group_norm_plain", "group_norm_plan",
            "group_norm_split_model", "GroupNormPlan"]
@@ -310,6 +311,7 @@ def _kernels() -> dict:
 
 def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
            num_groups: int):
+    refuse_grad("fused_group_norm", x, scale, bias)
     if x.device.type != "cuda":
         raise ValueError(f"fused_group_norm: unsupported device {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -335,8 +337,9 @@ def fused_group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
     CPU tensor: the plain version. CUDA tensor: the Triton kernels on
     `group_norm_plan`'s path, or a ValueError for a layout or dtype they
-    do not take. Each call on the card adds one to
-    `fused_group_norm.launches`."""
+    do not take, or a RuntimeError in grad mode when an input requires
+    grad (the kernels have no backward). Each call on the card adds one
+    to `fused_group_norm.launches`."""
     if x.device.type == "cpu":
         return group_norm_plain(x, scale, bias, num_groups=num_groups,
                                 eps=eps, swish=swish)

@@ -38,12 +38,14 @@ class PixelDiffusionPipeline:
                mode: Optional[QuantMode] = None,
                x_init: Optional[torch.Tensor] = None,
                eval_dtype: Optional[torch.dtype] = None,
-               model_fn: Optional[Callable] = None) -> torch.Tensor:
+               model_fn: Optional[Callable] = None,
+               return_trajectory: bool = False):
         """n samples, NHWC in [-1, 1] model space. The initial noise is
         x_init, or drawn from `generator` on the model's device. Each step
         calls model_fn (x, t) -> eps when given (a deployed engine,
         deploy.make_quantized_step), else the model: with a qstate under
-        the sim engine and `mode`."""
+        the sim engine and `mode`. return_trajectory=True: (samples,
+        trajectory), as samplers.ddim.ddim_sample returns them."""
         if sample_type != "generalized":
             raise NotImplementedError(sample_type)
         device = next(self.model.parameters()).device
@@ -60,7 +62,8 @@ class PixelDiffusionPipeline:
         seq = make_skip_sequence(self.schedule.num_timesteps, timesteps,
                                  skip_type)
         return ddim_sample(fn, x, seq, self.schedule.betas, eta=eta,
-                           generator=generator, eval_dtype=eval_dtype)
+                           generator=generator, eval_dtype=eval_dtype,
+                           return_trajectory=return_trajectory)
 
 
 @dataclasses.dataclass

@@ -14,12 +14,19 @@ forward), 'int8' (integer kernels for every packed layer, ops/int8.py;
 to simulation) and 'stream' (the folded model with integer weights
 resident in device memory for the packed sites, ops/qlayers.py; `packed`
 maps a site to its stream pack, deploy.py::stream_pack_model).
+
+Calibration (calib/): `capture` names the reconstruction units whose
+(input, output) a forward records into `captured`, and
+`differentiable=True` marks a forward that autograd differentiates, so
+the models keep to ops with a backward (the plain GroupNorm, not kernel
+B1). The JAX ctx's `substitute` (Fisher block gradients) and the
+EMA_SM_ONLY collect mode belong to the activation pass, not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Collection, Dict, Optional, Union
 
 import torch
 
@@ -38,6 +45,7 @@ class QuantMode:
 
     w: bool = False  # weight fake-quant active
     a: bool = False  # activation fake-quant active
+    soft: bool = False  # AdaRound soft (calibration) vs hard rounding
 
 
 # collect modes
@@ -52,14 +60,18 @@ class QuantCtx:
 
     def __init__(self, qstate: Optional[dict] = None,
                  mode: QuantMode = QuantMode(),
-                 collect: Optional[str] = None, engine: str = "sim",
-                 packed: Optional[dict] = None, conv_stream: str = "auto"):
+                 collect: Optional[str] = None,
+                 capture: Union[str, Collection[str], None] = None,
+                 engine: str = "sim", packed: Optional[dict] = None,
+                 differentiable: bool = False, conv_stream: str = "auto"):
         if engine not in ENGINES:
             raise NotImplementedError(
                 f"engine {engine!r} is not ported (have: {ENGINES})")
         self.qstate: dict = qstate or {}
         self.mode = mode
         self.collect = collect
+        self.capture = capture  # unit name(s) whose (input, output) to record
+        self.captured: dict = {}
         self.engine = engine
         self.packed: dict = packed or {}
         # conv_stream (stream engine): 'auto' streams a packed conv only
@@ -67,6 +79,10 @@ class QuantCtx:
         # (ops/qlayers.py::_stream_conv_profitable); 'all' streams every
         # packed conv
         self.conv_stream = conv_stream
+        # differentiable=True: this forward runs under autograd (block
+        # reconstruction); models then take the plain GroupNorm, since the
+        # kernels define no backward (their wrappers refuse a grad input)
+        self.differentiable = differentiable
         self.collected: Dict[str, dict] = {}
 
     def _get(self, name: str, slot: str) -> Optional[dict]:
@@ -78,8 +94,9 @@ class QuantCtx:
 
     def weight_quant(self, name: str, slot: str, w: torch.Tensor,
                      spec: AffineQuantizerSpec) -> torch.Tensor:
-        """Hard AdaRound when the state has 'alpha'; round-to-nearest
-        otherwise. A site without state is initialised from the weight."""
+        """AdaRound when the state has 'alpha' (soft rounding under
+        mode.soft, hard otherwise); round-to-nearest without it. A site
+        without state is initialised from the weight."""
         if not self.mode.w:
             return w
         st = self._get(name, slot)
@@ -87,7 +104,7 @@ class QuantCtx:
             st = init_state(w, spec)
             self._put(name, slot, st)
         if "alpha" in st:
-            return adaround_quant(w, st, spec)
+            return adaround_quant(w, st, spec, soft=self.mode.soft)
         return fake_quant(w, st["delta"], st["zero_point"], spec)
 
     def act_quant(self, name: str, slot: str, x: torch.Tensor,
@@ -135,3 +152,17 @@ class QuantCtx:
         aq = self.act_quant(name, slot_a, a, spec_a)
         bq = self.act_quant(name, slot_b, b, spec_b)
         return torch.einsum(eq, aq.float(), bq.float())
+
+    def capture_io(self, name: str, inp, out):
+        """Record a unit's (input, output) when it is a capture target
+        (JAX context.py:175-184)."""
+        if self.is_capture_target(name):
+            self.captured[name] = {"inp": inp, "out": out}
+
+    def is_capture_target(self, name: str) -> bool:
+        """`capture` is one unit name or a collection of names (one sweep
+        records several units, calib/capture.py::GroupedCapture)."""
+        cap = self.capture
+        if cap is None:
+            return False
+        return name == cap if isinstance(cap, str) else name in cap

@@ -5,11 +5,15 @@ A Python loop over the steps replaces the JAX lax.scan. Alpha lookups use
 the zero-padded beta cumprod at index t+1 (compute_alpha,
 denoising.py:4-7). The step tables are f32, as in the JAX scan, and the
 sampler carry stays f32 when the model runs in another dtype.
+
+`return_trajectory=True` also returns the exact (x_t, t) the model saw at
+every step, the data timestep-aware calibration draws from
+(calib/samples.py::get_train_samples; reference qdiff/utils.py:325-348).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,7 +36,9 @@ def _alpha_tables(betas: np.ndarray, seq: Sequence[int]):
 def ddim_sample(model_fn: ModelFn, x: torch.Tensor, seq: Sequence[int],
                 betas: np.ndarray, *, eta: float = 0.0,
                 generator: Optional[torch.Generator] = None,
-                eval_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                eval_dtype: Optional[torch.dtype] = None,
+                return_trajectory: bool = False
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, dict]]:
     """Generalized DDIM sampling (reference generalized_steps).
 
     x: NHWC noise; seq: increasing timestep subsequence. eval_dtype: the
@@ -40,14 +46,20 @@ def ddim_sample(model_fn: ModelFn, x: torch.Tensor, seq: Sequence[int],
     stay f32, only the model input is cast down and eps cast back. None
     keeps x's dtype throughout (reference parity). With eta > 0 the noise
     comes from `generator` (on x's device); with eta == 0 the noise term
-    is zero and no noise is drawn."""
+    is zero and no noise is drawn. return_trajectory=True returns (x,
+    {"xs": [S,B,H,W,C], "ts": [S,B]}): the carry and the timesteps of
+    every step in execution order (JAX ddim.py:39-89)."""
     ts, at, at_next = _alpha_tables(np.asarray(betas, np.float64), seq)
     one = np.float32(1.0)
     if eval_dtype is not None:
         x = x.float()
     n = x.shape[0]
+    traj_x, traj_t = [], []
     for t, a, a_next in zip(ts, at, at_next):
         tb = torch.full((n,), float(t), dtype=torch.float32, device=x.device)
+        if return_trajectory:
+            traj_x.append(x)
+            traj_t.append(tb)
         et = (model_fn(x, tb) if eval_dtype is None else
               model_fn(x.to(eval_dtype), tb).to(x.dtype))
         # f32 scalar tables, computed as the JAX scan computes them
@@ -61,6 +73,8 @@ def ddim_sample(model_fn: ModelFn, x: torch.Tensor, seq: Sequence[int],
                                 dtype=x.dtype, device=x.device)
             x_next = x_next + float(c1) * noise
         x = x_next + float(c2) * et
+    if return_trajectory:
+        return x, {"xs": torch.stack(traj_x), "ts": torch.stack(traj_t)}
     return x
 
 

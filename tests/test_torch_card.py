@@ -126,6 +126,83 @@ def test_tiny_sim_w8a8_split_runs_on_card(card):
     assert eps.shape == (2, 16, 16, 3) and bool(torch.isfinite(eps).all())
 
 
+@pytest.mark.parametrize("wrapper", ["B1", "B2", "B3"])
+def test_kernel_wrappers_refuse_a_grad_input_on_card(card, wrapper):
+    """No kernel has a backward: a CUDA input that requires grad, in grad
+    mode, raises rather than give an output that drops the gradient;
+    under torch.no_grad() the same call launches."""
+    from qdiffusion_torch.ops.flash_attention import flash_attention
+    from qdiffusion_torch.ops.flash_streaming import \
+        streaming_flash_attention
+
+    if wrapper == "B1":
+        x = torch.randn((2, 4, 4, 64), device=card)
+        w = torch.ones(64, device=card, requires_grad=True)
+        call = lambda: fused_group_norm(x, w, w)  # noqa: E731
+    else:
+        q, k, v = _attn_inputs(card, (1, 64, 64, 2, 32), torch.bfloat16)
+        q.requires_grad_(True)
+        fn = flash_attention if wrapper == "B2" else \
+            streaming_flash_attention
+        call = lambda: fn(q, k, v, scale=0.125)  # noqa: E731
+    with pytest.raises(RuntimeError, match="requires grad"):
+        call()
+    with torch.no_grad():
+        assert torch.isfinite(call().float()).all()
+
+
+def test_tiny_recon_gradient_reaches_every_alpha_on_card(card):
+    """One reconstruction step of a ResnetBlock unit (mid.block_1, 2
+    channels per GroupNorm group) on asym inputs captured on the card:
+    the captures launch B1, the differentiable forward does not (plain
+    GroupNorm), and every alpha, conv1's (behind norm2) included, gets the
+    gradient the CPU gets: 1e-3 of its largest element."""
+    from qdiffusion_torch import resolve_device
+    from qdiffusion_torch.calib.capture import capture_unit_io
+    from qdiffusion_torch.calib.engine import init_weight_qstate
+    from qdiffusion_torch.calib.recon import SOFT, ReconConfig, \
+        extract_trainable, init_adaround_unit, merge_trainable, recon_loss
+    from qdiffusion_torch.quant.context import QuantCtx
+
+    resolve_device(card)
+    x, t = _inputs_nhwc()
+    q = None
+    grads = {}
+    for m in _tiny_pair(card, weight_bit=4, split=True):
+        dev = next(m.parameters()).device
+        unit = next(u for u in m.units if u.name == "mid.block_1")
+        if q is None:
+            q = init_weight_qstate(m)
+        qd = {s: {k: {n: v.to(dev) for n, v in st.items()}
+                  for k, st in sl.items()} for s, sl in q.items()}
+        before = fused_group_norm.launches
+        inps, out = capture_unit_io(m, qd, unit.name, x.to(dev), t.to(dev),
+                                    asym=True, batch_size=2)
+        captured = fused_group_norm.launches - before
+        qd = init_adaround_unit(m, qd, unit)
+        train = {s: {k: a.clone().requires_grad_(True)
+                     for k, a in sl.items()}
+                 for s, sl in extract_trainable(qd, unit).items()}
+        m.requires_grad_(False)
+        before = fused_group_norm.launches
+        ctx = QuantCtx(merge_trainable(qd, train), mode=SOFT,
+                       differentiable=True)
+        loss = recon_loss(unit.apply(ctx, *inps), out, train, 20.0, 100.0,
+                          ReconConfig(iters=100), unit.loss_axis)
+        loss.backward()
+        if dev.type == "cuda":
+            assert captured > 0
+            assert fused_group_norm.launches == before
+        grads[dev.type] = {(s, k): a.grad for s, sl in train.items()
+                           for k, a in sl.items()}
+    assert ("mid.block_1.conv1", "w") in grads["cuda"]
+    for key, want in grads["cpu"].items():
+        got = grads["cuda"][key]
+        assert got is not None and bool(got.abs().max() > 0), key
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-3,
+                                   atol=1e-3 * float(want.abs().max()))
+
+
 # -- B2 / B3: the CUDA flash-attention kernels -----------------------------
 
 def _attn_inputs(card, shape, dtype, seed=0):

@@ -125,3 +125,55 @@ def test_fold_with_quant_act_is_refused(tmp_path):
                   str(tmp_path / "q.npz"), "--quant-act", "--engine", "fold",
                   "--device", "cpu"])
 
+
+
+def test_make_cali_data_calibrate_then_sample(tmp_path):
+    """The weight pass end to end through the CLI: the trajectory npz in
+    the JAX keys and NHWC layout, calibrate's qstate with an alpha on
+    every weight quantizer (read back by the JAX package's loader), then
+    `sample --engine fold` on that file as it is."""
+    traj = tmp_path / "traj.npz"
+    cli.main(["make-cali-data", "--task", "tiny", "--n", "8",
+              "--timesteps", "8", "--out", str(traj), "--device", "cpu"])
+    with np.load(traj) as f:
+        assert sorted(f.files) == ["ts", "xs"]
+        assert f["xs"].shape == (9, 8, 8, 8, 3) and f["ts"].shape == (9, 8)
+        assert f["xs"].dtype == np.float32
+    res = cli.main(["calibrate", "--task", "tiny", "--cali-data", str(traj),
+                    "--weight-bit", "4", "--split", "--cali-st", "4",
+                    "--cali-n", "4", "--cali-batch-size", "4",
+                    "--cali-iters", "8", "--alpha-dtype", "bfloat16",
+                    "--run-dir", str(tmp_path / "run"), "--device", "cpu"])
+    assert res["path"] == str(tmp_path / "run" / "qstate.npz")
+    assert res["samples"] == 5 * 4  # 9 steps sliced every 2: 5 steps
+    assert (tmp_path / "run" / "run.log").exists()
+    with np.load(res["path"]) as f:
+        assert any(k.endswith("/alpha#bf16") for k in f.files)
+    jq = jax_load_qstate(res["path"])
+    m = _model(weight_bit=4, split=True)
+    for name, cfg in m.layer_cfgs.items():
+        for slot in ("w", "w0") if cfg.split else ("w",):
+            assert jq[name][slot]["alpha"].dtype.name == "bfloat16"
+    out = cli.main(["sample", "--task", "tiny", "--qstate", res["path"],
+                    "--weight-bit", "4", "--split", "--engine", "fold",
+                    "--n", "2", "--batch", "2", "--npz-out",
+                    str(tmp_path / "s.npz"), "--device", "cpu"])
+    assert out["nonfinite"] == 0 and _load(out["path"]).shape == (2, 8, 8, 3)
+
+
+@pytest.mark.parametrize("argv", [
+    ["calibrate", "--task", "tiny", "--quant-act"],
+    ["calibrate", "--task", "tiny", "--resume-w", "w.npz"],
+    ["calibrate", "--task", "sd_v1"],
+    ["make-cali-data", "--task", "sd_v1"],
+])
+def test_calibration_beyond_the_weight_pass_is_refused(argv, tmp_path):
+    """The activation pass, --resume-w and the latent tasks exit naming
+    the roadmap item that brings them, before any work."""
+    if argv[0] == "calibrate":
+        argv = argv + ["--cali-data", str(tmp_path / "none.npz")]
+    else:
+        argv = argv + ["--out", str(tmp_path / "t.npz")]
+    with pytest.raises(SystemExit, match="A4b"):
+        cli.main(argv + ["--device", "cpu"])
+    assert not list(tmp_path.iterdir())

@@ -90,6 +90,57 @@ def test_non_cuda_device_other_than_cpu_raises():
         fused_group_norm(x, w, w)
 
 
+@pytest.mark.parametrize("wrapper", ["B1", "B2", "B3"])
+def test_kernel_wrappers_refuse_a_grad_input(wrapper):
+    """The kernels have no backward: off the CPU, a wrapper called in grad
+    mode on an input that requires grad raises (here on meta tensors, which
+    take the kernel branch without a card) instead of returning an output
+    with no grad_fn; under torch.no_grad() it goes on to its device check."""
+    from qdiffusion_torch.ops.flash_attention import flash_attention
+    from qdiffusion_torch.ops.flash_streaming import \
+        streaming_flash_attention
+
+    x = torch.empty((2, 16, 2, 64), device="meta")
+    w = torch.ones(64, device="meta", requires_grad=True)
+    q = x.clone().requires_grad_(True)
+    call = {"B1": lambda: fused_group_norm(x, w, w),
+            "B2": lambda: flash_attention(q, x, x, scale=0.125),
+            "B3": lambda: streaming_flash_attention(q, x, x, scale=0.125)
+            }[wrapper]
+    with pytest.raises(RuntimeError, match="requires grad.*no backward"):
+        call()
+    with torch.no_grad(), pytest.raises(ValueError,
+                                        match="unsupported device"):
+        call()
+
+
+@pytest.mark.parametrize("swish", [False, True])
+def test_unfused_group_norm_is_differentiable_and_matches_jax(swish):
+    """fused_ok=False (the differentiable forwards of calibration): the
+    values of the JAX XLA GroupNorm (variance as jnp.var), and input,
+    scale and bias gradients equal to autograd through the plain
+    version."""
+    x, scale, bias = _inputs((2, 8, 8, 96), seed=3)
+    fn = nn.group_norm_swish if swish else nn.group_norm
+    jfn = jax_nn.group_norm_swish if swish else jax_nn.group_norm
+    grads = []
+    for fused_ok in (False, True):
+        args = [torch.from_numpy(a).requires_grad_(True)
+                for a in (x, scale, bias)]
+        y = fn(args[0].permute(0, 3, 1, 2), args[1], args[2],
+               fused_ok=fused_ok)
+        if not fused_ok:
+            ref = jfn(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
+            np.testing.assert_allclose(
+                y.permute(0, 2, 3, 1).detach().numpy(), np.asarray(ref),
+                rtol=2e-5, atol=2e-5)
+        (y * torch.linspace(-1, 1, y.numel()).reshape(y.shape)).sum() \
+            .backward()
+        grads.append([a.grad for a in args])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
 
 # -- B1's launch plan and its split path's reduction -------------------------
 
