@@ -38,6 +38,32 @@ every kernel of them against its plain PyTorch version:
                 lower; then up.3.block.0 reconstructed on the card and on
                 the CPU (50 iterations, same inputs and indices): losses
                 within 1e-3 relative, hard roundings 99.9 % equal.
+  calib_act   - the activation pass through the CLI on the calib phase's
+                qstate and trajectory: `calibrate --resume-w <qstate>
+                --quant-act --running-stat --weight-bit 4 --split
+                --cali-iters-a 100` (W4A8, all 38 units; reference 5,000
+                iterations); spies time the act init (64 rows, 51 B1
+                launches), the EMA sweep (2 batches of 64, 102), the FP
+                capture and each reconstruction (B1 0 launches inside),
+                and hold each unit's act block error with its learned
+                deltas to 1.02x its init/EMA deltas' on its captured FP
+                inputs, the sum over those units strictly lower, wherever
+                every trained delta is at least the learning rate (a
+                post-softmax delta of a flat softmax may not be: Adam's
+                first step overshoots it, in JAX too; such a unit's
+                ratio is printed); the Fisher grads of mid.block_1 and
+                down.1.attn.0 on the card against the CPU from the same
+                16 rows, the CPU's fed the card's captures (1e-4 of the
+                largest |g|; each device's own capture's gap printed
+                beside it), and a 20-iteration fisher_diag
+                reconstruction on the card (finite losses);
+                a run with --run-dir whose spy raises in the 13th
+                reconstruction, then the same command resuming from the
+                marker (act, unit 7): 30 units, the restored sites
+                bit-equal to the snapshot; `sample --engine int8 --quant-act
+                --split` on the calibrated qstate, 64 images (B4 100 x 113
+                and B1 100 x 51 launches), and the int8 eps of 8 held
+                inputs against the FP eps, calibrated and init-only deltas.
   Stable Diffusion v1 (sd_v1 preset, full width, seeded random weights
   with no zero-initialised branch; no checkpoint or vocabulary needed):
   5. attn_kernels - B2 (flash_attention) at (8, 4096, 8, 40) and
@@ -184,6 +210,18 @@ CARD_CPU_UNIT = "up.3.block.0"  # a split up block (4x4, 512 -> 256)
 CARD_CPU_ITERS = 50
 CARD_CPU_LOSS_REL = 1e-3  # per-iteration loss, card against CPU
 CARD_CPU_FLIPS = 1e-3  # share of hard roundings that may differ
+# calib_act: the activation pass on the calib phase's weight qstate and
+# trajectory (the same 144 samples), W4A8 split, running-stat EMA, 100
+# iterations a unit (reference 5,000)
+ACT_ITERS = 100
+ACT_INIT = 64  # act init rows and EMA batch (the reference's)
+ACT_RESUME_ITERS = 10  # the crash-and-resume run checks control flow only
+ACT_CRASH_AT = 13  # the resume run's spy raises in this reconstruction
+FISHER_UNITS = ("mid.block_1", "down.1.attn.0")  # a ResnetBlock, attention
+FISHER_ROWS = 16  # calibration rows of the card-vs-CPU Fisher grads
+FISHER_REL = 1e-4  # of the largest |g|
+FISHER_ITERS = 20
+HELD = 8  # held inputs of the int8-vs-FP eps comparison
 
 
 def _emit(obj: dict):
@@ -632,12 +670,14 @@ def phase_profile(task, out: Path) -> dict:
 
 # -- calibration: the AdaRound weight pass ----------------------------------
 
-def _block_mse(unit, qstate, inps, out, chunk: int = CALIB_BATCH) -> float:
+def _block_mse(unit, qstate, inps, out, chunk: int = CALIB_BATCH,
+               acts: bool = False) -> float:
     """Mean squared error of the unit's hard-rounded forward (alphas where
-    qstate has them, nearest rounding elsewhere) on captured inputs."""
+    qstate has them, nearest rounding elsewhere; with acts, activations
+    quantized too) on captured inputs."""
     from qdiffusion_torch.quant.context import QuantCtx, QuantMode
 
-    ctx = QuantCtx(qstate, mode=QuantMode(w=True))
+    ctx = QuantCtx(qstate, mode=QuantMode(w=True, a=acts))
     se, n = 0.0, 0
     with torch.no_grad():
         for i in range(0, out.shape[0], chunk):
@@ -885,6 +925,385 @@ def _calib_card_vs_cpu(task, kept: dict, check: Checks) -> dict:
             "loss_last": float(lp[-1]), "flip_share": flips / n,
             "weights": n, "alpha_abs_diff_max": alpha_diff,
             "card_s": sc, "cpu_s": sp}
+
+
+# -- calibration: the activation pass ---------------------------------------
+
+def _calib_act_argv(work: Path, run: Path, iters: int) -> list:
+    return ["calibrate", "--task", "cifar10",
+            "--cali-data", str(work / "calib" / "traj.npz"),
+            "--resume-w", str(work / "calib" / "run" / "qstate.npz"),
+            "--weight-bit", "4", "--split", "--quant-act", "--running-stat",
+            "--cali-st", str(CALIB_ST), "--cali-n", str(CALIB_CALI_N),
+            "--cali-batch-size", str(CALIB_BATCH), "--cali-iters-a",
+            str(iters), "--act-init-batch", str(ACT_INIT), "--run-dir",
+            str(run), "--device", "cuda"]
+
+
+def phase_calib_act(task, work: Path, smi: str, check: Checks) -> dict:
+    """The activation pass through the CLI at full width on the calib
+    phase's weight qstate and trajectory (`calibrate --resume-w`), with
+    spies around the act init, the EMA sweep, the FP capture and each
+    reconstruction: seconds, B1 launches (none inside a reconstruction)
+    and each unit's block error with its init/EMA deltas and with its
+    learned ones. Then the Fisher grads card against CPU and a
+    fisher_diag reconstruction on the card, a crash-and-resume through
+    --run-dir, and `sample --engine int8` on the calibrated qstate (B4
+    and B1 launch counts, and the eps of the calibrated and the
+    init-only deltas against the FP eps)."""
+    from qdiffusion_torch import cli
+    from qdiffusion_torch.calib import capture, engine, recon
+    from qdiffusion_torch.ops.groupnorm import fused_group_norm as gn
+    from qdiffusion_torch.ops.int8_conv import int8_conv
+
+    work_a = work / "calib_act"
+    units, parts, kept = [], {}, {}
+    count = {"recon": 0, "error": 0}
+    real = (engine.reconstruct_unit, engine.init_act_qstate,
+            engine.run_running_stat, capture.GroupedCapture.fp_capture)
+
+    def timed(key, fn, *a, **kw):
+        torch.cuda.synchronize()
+        b0, t0 = gn.launches, time.perf_counter()
+        res = fn(*a, **kw)
+        torch.cuda.synchronize()
+        parts.setdefault(key, {"seconds": 0.0, "b1_launches": 0, "calls": 0})
+        parts[key]["seconds"] += time.perf_counter() - t0
+        parts[key]["b1_launches"] += gn.launches - b0
+        parts[key]["calls"] += 1
+        return res, time.perf_counter() - t0, gn.launches - b0
+
+    def init_spy(*a, **kw):
+        kept["init"] = timed("act_init", real[1], *a, **kw)[0]
+        return kept["init"]
+
+    def ema_spy(*a, **kw):
+        return timed("ema_sweep", real[2], *a, **kw)[0]
+
+    def fp_spy(self, *a, **kw):
+        return timed("fp_capture", real[3], self, *a, **kw)[0]
+
+    def recon_spy(model, qstate, unit, inps, target, cfg, **kw):
+        b0 = gn.launches
+        small = recon.deltas_below_lr(qstate, unit, cfg.lr)
+        before = _block_mse(unit, qstate, inps, target, acts=True)
+        count["error"] += gn.launches - b0
+        new, sec, n = timed("reconstructions", real[0], model, qstate, unit,
+                            inps, target, cfg, **kw)
+        count["recon"] += n
+        b0 = gn.launches
+        after = _block_mse(unit, new, inps, target, acts=True)
+        count["error"] += gn.launches - b0
+        units.append({"unit": unit.name, "kind": unit.kind,
+                      "recon_s": sec, "ms_per_iter": sec / cfg.iters * 1e3,
+                      "recon_b1_launches": n, "mse_init": before,
+                      "mse_learned": after, "ratio": after / before,
+                      "deltas_below_lr": [f"{s}/{k}" for s, k in small]})
+        return new
+
+    engine.reconstruct_unit, engine.init_act_qstate = recon_spy, init_spy
+    engine.run_running_stat = ema_spy
+    capture.GroupedCapture.fp_capture = fp_spy
+    torch.cuda.reset_peak_memory_stats()
+    gn.launches = int8_conv.launches = 0
+    t0 = time.perf_counter()
+    try:
+        cal = cli.main(_calib_act_argv(work, work_a / "run", ACT_ITERS))
+    finally:
+        (engine.reconstruct_unit, engine.init_act_qstate,
+         engine.run_running_stat) = real[:3]
+        capture.GroupedCapture.fp_capture = real[3]
+    calib_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {"calibrate": gn.launches - count["error"]}
+    names = [u.name for u in _seeded_model(task, "cpu", weight_bit=4,
+                                           split=True).units]
+    check([r["unit"] for r in units] == names,
+          f"calib_act reconstructed {len(units)} of {len(names)} units")
+    check(count["recon"] == 0, f"calib_act: B1 launched {count['recon']} "
+                               "times inside the reconstruction loops")
+    want_b1 = {"act_init": 51, "ema_sweep": 51 * (
+        (cal["samples"] - ACT_INIT) // ACT_INIT + 1)}
+    for key, n in want_b1.items():
+        got = parts.get(key, {}).get("b1_launches")
+        check(got == n, f"calib_act {key}: {got} B1 launches, expected {n}")
+    check(parts.get("fp_capture", {}).get("b1_launches", 0) > 0,
+          "calib_act: B1 not launched by the FP captures")
+    # the quality bound holds where Adam can train every delta: a delta
+    # below the lr is overshot by the first step (lr x the gradient's
+    # sign), as in the JAX package (tests/test_torch_calib_act.py)
+    held = [r for r in units if not r["deltas_below_lr"]]
+    below = [r for r in units if r["deltas_below_lr"]]
+    check(all(r["kind"] == "attn" for r in below),
+          f"calib_act: deltas below the lr outside attention: "
+          f"{[(r['unit'], r['deltas_below_lr']) for r in below]}")
+    for r in held:
+        check(r["ratio"] <= RECON_BOUND,
+              f"{r['unit']}: act block error {r['ratio']} x its init/EMA "
+              f"deltas', bound {RECON_BOUND}")
+    before = sum(r["mse_init"] for r in held)
+    after = sum(r["mse_learned"] for r in held)
+    check(after < before, f"calib_act: sum of block errors {after} not "
+                          f"below the init/EMA deltas' {before}")
+
+    fisher = _fisher_card_vs_cpu(task, work, cal["path"], check)
+    resume = _calib_act_resume(names, work, check)
+    int8 = _calib_act_int8(task, work, cal["path"], kept["init"], check)
+    launches["int8_sample"] = int8["launches"]["group_norm"]
+    launches["path"] = launches["calibrate"] + launches["int8_sample"]
+
+    kinds: dict = {}
+    for r in units:
+        kinds.setdefault(r["kind"], []).append(r["ms_per_iter"])
+    row = {"phase": "calib_act", "nvidia_smi": smi,
+           "reduced": {"calibration samples": f"{CALIB_CALI_N} x 9 steps "
+                       "(reference 256 x 20)", "iterations per unit":
+                       f"{ACT_ITERS} (reference 5000)"},
+           "calibrate_s": calib_s, "calibrate_cli_s": cal["seconds"],
+           "samples": cal["samples"], "peak_device_gb": peak_gb,
+           "parts": parts,
+           "ms_per_iter_by_kind": {k: {"median": float(np.median(v)),
+                                       "max": max(v), "units": len(v)}
+                                   for k, v in kinds.items()},
+           "b1_launches": launches, "mse_init_sum": before,
+           "mse_learned_sum": after,
+           "worst_ratio": max((r["ratio"] for r in held), default=None),
+           "below_lr_units": {r["unit"]: {"ratio": r["ratio"],
+                                          "deltas": r["deltas_below_lr"]}
+                              for r in below},
+           "fisher": fisher, "resume": resume, "int8": int8}
+    _emit({k: v for k, v in row.items() if k != "units"})
+    for r in units:
+        _emit({"phase": "calib_act_unit", "nvidia_smi": smi, **r})
+    row["units"] = units
+    return row
+
+
+def _fisher_card_vs_cpu(task, work: Path, qpath: str, check: Checks) -> dict:
+    """save_grad_data (act_quant) for FISHER_UNITS on the card and on the
+    CPU from the same FISHER_ROWS calibration rows and qstate. The
+    card's KL gradients are held against the CPU's computed from the
+    card's own captures (each batch's FP output and W4A8 unit output,
+    recorded at fisher._kl_grad): the device's arithmetic alone. The
+    CPU's whole save_grad_data is printed beside them: its W4A8 capture
+    lands some activations in other buckets than the card's, and the
+    gradients (|g| - 1 about 1e-3) follow. Then one fisher_diag act
+    reconstruction of FISHER_ITERS iterations of the ResnetBlock on the
+    card (its losses read through recon_loss)."""
+    from qdiffusion_torch.calib import fisher, recon
+    from qdiffusion_torch.calib.capture import capture_unit_io
+    from qdiffusion_torch.calib.samples import get_train_samples
+    from qdiffusion_torch.ops.groupnorm import fused_group_norm as gn
+    from qdiffusion_torch.utils.checkpoints import load_qstate
+
+    with np.load(work / "calib" / "traj.npz") as f:
+        traj = {k: torch.from_numpy(f[k]) for k in ("xs", "ts")}
+    xs, ts = (a[:FISHER_ROWS] for a in get_train_samples(
+        traj, CALIB_CALI_N, CALIB_ST))
+    out, grads, seen = {}, {}, {}
+    real = fisher._kl_grad
+
+    def kl_spy(model, qstate, name, *a):
+        if a[0].device.type == "cuda":
+            seen.setdefault(name, []).append(tuple(v.cpu() for v in a))
+        return real(model, qstate, name, *a)
+
+    models = {}
+    fisher._kl_grad = kl_spy
+    try:
+        for dev in ("cuda", "cpu"):
+            models[dev] = _seeded_model(task, dev, weight_bit=4,
+                                        quant_act=True, split=True)
+            q = load_qstate(qpath, dev)
+            for name in FISHER_UNITS:
+                b0, t0 = gn.launches, time.perf_counter()
+                grads[dev, name] = fisher.save_grad_data(
+                    models[dev], q, name, xs.to(dev), ts.to(dev),
+                    act_quant=True, batch_size=8).cpu()
+                out.setdefault(name, {})[f"{dev}_s"] = \
+                    time.perf_counter() - t0
+                if dev == "cuda":
+                    out[name]["b1_launches"] = gn.launches - b0
+    finally:
+        fisher._kl_grad = real
+    q_cpu = load_qstate(qpath, "cpu")
+    for name in FISHER_UNITS:
+        g_card, g_cpu = grads["cuda", name], grads["cpu", name]
+        g_same = torch.cat([real(models["cpu"], q_cpu, name, *batch)
+                            for batch in seen[name]])
+        err = float((g_card - g_same).abs().max() / g_same.abs().max())
+        captures = max(float((b[3] - _unit_out(models["cpu"], q_cpu, name,
+                                               b[0], b[1])).abs().max())
+                       for b in seen[name])
+        out[name].update(
+            shape=list(g_cpu.shape), rel_err=err,
+            rel_err_own_capture=float((g_card - g_cpu).abs().max()
+                                      / g_cpu.abs().max()),
+            capture_abs_diff_max=captures,
+            g_max=float(g_cpu.abs().max()), g_mean=float(g_cpu.mean()))
+        check(err <= FISHER_REL, f"Fisher grads of {name}, card vs CPU on "
+                                 f"the card's captures: {err} of the "
+                                 f"largest |g|, limit {FISHER_REL}")
+        check(out[name].get("b1_launches", 0) > 0,
+              f"Fisher grads of {name}: B1 not launched")
+
+    model = _seeded_model(task, "cuda", weight_bit=4, quant_act=True,
+                          split=True)
+    q = load_qstate(qpath, "cuda")
+    name = FISHER_UNITS[0]
+    unit = next(u for u in model.units if u.name == name)
+    inps, target = capture_unit_io(model, q, name, xs.cuda(), ts.cuda(),
+                                   batch_size=8)
+    losses, real = [], recon.recon_loss
+
+    def loss_spy(*a, **kw):
+        loss = real(*a, **kw)
+        losses.append(loss.detach())
+        return loss
+
+    recon.recon_loss = loss_spy
+    b0, t0 = gn.launches, time.perf_counter()
+    try:
+        recon.reconstruct_unit(
+            model, q, unit, inps, target,
+            recon.ReconConfig(iters=FISHER_ITERS, batch_size=CALIB_BATCH,
+                              p=2.4, opt_mode="fisher_diag"),
+            act_quant=True, cached_grads=grads["cuda", name].cuda())
+        torch.cuda.synchronize()
+    finally:
+        recon.recon_loss = real
+    losses = torch.stack(losses).cpu()
+    out["fisher_diag_recon"] = {
+        "unit": name, "iters": FISHER_ITERS, "seconds":
+        time.perf_counter() - t0, "b1_launches": gn.launches - b0,
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
+    check(len(losses) == FISHER_ITERS and bool(torch.isfinite(losses).all()),
+          f"fisher_diag reconstruction of {name}: losses {losses.tolist()}")
+    check(gn.launches == b0, "fisher_diag reconstruction launched B1")
+    return out
+
+
+def _unit_out(model, qstate, name, x, t):
+    """The W4A8 capture of unit `name`'s output for one batch."""
+    from qdiffusion_torch.calib.capture import _forward
+    from qdiffusion_torch.quant.context import QuantMode
+
+    with torch.no_grad():
+        return _forward(model, qstate, QuantMode(w=True, a=True), (name,),
+                        x, t)[name][1]
+
+
+def _calib_act_resume(names: list, work: Path, check: Checks) -> dict:
+    """The act pass through the CLI with --run-dir, a spy raising in its
+    ACT_CRASH_AT-th reconstruction; then the same command again: it must
+    resume from the marker (act, unit 7), reconstruct the 30 units after
+    it and leave the restored sites bit-equal to the snapshot files."""
+    from qdiffusion_torch import cli
+    from qdiffusion_torch.calib import engine
+    from qdiffusion_torch.utils.checkpoints import CalibCheckpointer, \
+        load_qstate
+
+    run = work / "calib_act" / "resume"
+    argv = _calib_act_argv(work, run, ACT_RESUME_ITERS)
+    real, calls = engine.reconstruct_unit, []
+    crash = [True]
+
+    def spy(model, qstate, unit, *a, **kw):
+        if crash[0] and len(calls) == ACT_CRASH_AT - 1:
+            raise RuntimeError("chip_smoke: simulated crash")
+        calls.append(unit.name)
+        return real(model, qstate, unit, *a, **kw)
+
+    engine.reconstruct_unit = spy
+    t0 = time.perf_counter()
+    try:
+        try:
+            cli.main(argv)
+            crashed = False
+        except RuntimeError as e:
+            crashed = "simulated crash" in str(e)
+        first_s = time.perf_counter() - t0
+        check(crashed, "calib_act resume: the first run did not crash")
+        progress = json.loads((run / "calib_progress.json").read_text())
+        snap, _ = CalibCheckpointer(run).load()
+        done = list(calls)
+        calls.clear()
+        crash[0] = False
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+    finally:
+        engine.reconstruct_unit = real
+    want = names[progress["unit_idx"] + 1:]
+    check(progress["phase"] == "act" and progress["unit_idx"] == 7,
+          f"calib_act resume: marker {progress}, expected act unit 7")
+    check(calls == want and len(calls) == len(names) - 8,
+          f"calib_act resume: the rerun reconstructed {len(calls)} units "
+          f"from {calls[:1]}, expected {len(want)} from {want[:1]}")
+    final = load_qstate(res["path"])
+    sites = [s for s in snap if any(s == n or s.startswith(n + ".")
+                                    for n in names[:progress["unit_idx"] + 1])]
+    equal = all(torch.equal(final[s][k][n], t) for s in sites
+                for k, st in snap[s].items() for n, t in st.items())
+    check(bool(sites) and equal, f"calib_act resume: the {len(sites)} "
+                                 "restored sites differ from the snapshot")
+    check(not (run / "calib_progress.json").exists(),
+          "calib_act resume: the marker is still there")
+    return {"iters": ACT_RESUME_ITERS, "crash_in": ACT_CRASH_AT,
+            "first_run_units": len(done), "marker": progress,
+            "rerun_units": len(calls), "rerun_first": calls[:1],
+            "restored_sites": len(sites), "restored_bit_equal": equal,
+            "first_s": first_s, "rerun_s": time.perf_counter() - t0}
+
+
+def _calib_act_int8(task, work: Path, qpath: str, init_q: dict,
+                    check: Checks) -> dict:
+    """`sample --engine int8` on the calibrated W4A8 qstate (64 images,
+    DDIM-100; B4 and B1 counted from 0), then the int8 step's eps on HELD
+    inputs against the FP eps, with the calibrated deltas and with the
+    init-only ones (the act init's qstate)."""
+    from qdiffusion_torch import cli
+    from qdiffusion_torch.deploy import make_quantized_step
+    from qdiffusion_torch.ops.groupnorm import fused_group_norm as gn
+    from qdiffusion_torch.ops.int8_conv import int8_conv
+    from qdiffusion_torch.utils.checkpoints import load_qstate
+
+    gn.launches = int8_conv.launches = 0
+    res = cli.main(["sample", "--task", "cifar10", "--qstate", qpath,
+                    "--weight-bit", "4", "--quant-act", "--split",
+                    "--engine", "int8", "--n", str(BATCH), "--batch",
+                    str(BATCH), "--npz-out",
+                    str(work / "calib_act" / "int8.npz"), "--device",
+                    "cuda"])
+    launches = {"int8_conv": int8_conv.launches, "group_norm": gn.launches}
+    want = {"int8_conv": STEPS * 113, "group_norm": STEPS * 51}
+    with np.load(res["path"]) as f:
+        imgs = f["arr_0"]
+    check(imgs.shape == (BATCH, 32, 32, 3) and imgs.dtype == np.uint8
+          and res["nonfinite"] == 0,
+          f"calib_act int8 sample {imgs.shape} {imgs.dtype}, "
+          f"{res['nonfinite']} non-finite")
+    check(launches == want, f"calib_act int8 sample: launches {launches}, "
+                            f"expected {want}")
+    model = _seeded_model(task, weight_bit=4, quant_act=True, split=True)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((HELD, 32, 32, 3), generator=gen, device="cuda")
+    t = torch.linspace(0, 999, HELD, device="cuda")
+    with torch.no_grad():
+        fp = model(x, t).float()
+
+    def rel(q):
+        eps = make_quantized_step(model, q, engine="int8")(x, t).float()
+        return float(torch.linalg.vector_norm(eps - fp)
+                     / torch.linalg.vector_norm(fp))
+
+    calibrated = load_qstate(qpath, "cuda")
+    return {"images": int(imgs.shape[0]), "steps": res["steps"],
+            "batch_seconds": res["batch_seconds"],
+            "img_per_s": BATCH / res["batch_seconds"][-1],
+            "launches": launches, "expected_launches": want,
+            "image_mean": float(imgs.mean()), "image_std": float(imgs.std()),
+            "eps_rel_l2_vs_fp": {"calibrated": rel(calibrated),
+                                 "init_only": rel(init_q)}}
 
 
 # -- Stable Diffusion v1 ------------------------------------------------------
@@ -2361,6 +2780,11 @@ def main(argv=None) -> int:
     # CIFAR-10 calibration, slice 8's path: the AdaRound weight pass
     calib = phase_calib(task, work, smi, check)
     torch.cuda.empty_cache()
+    # slice 9's path: the activation pass on its qstate, then int8
+    calib_act = phase_calib_act(task, work, smi, check)
+    for name, n in calib_act["int8"]["launches"].items():
+        check(n > 0, f"calib_act int8 sample: {name} not launched")
+    torch.cuda.empty_cache()
 
     # Stable Diffusion v1, slice 2's path
     gn_unet = phase_kernels(spy["unet_gn_shapes"], check, designs,
@@ -2416,6 +2840,7 @@ def main(argv=None) -> int:
              "sd_v1_fold": sd_launches["group_norm"],
              "cifar10_int8": int8_cli["launches"]["group_norm"],
              "cifar10_calib": calib["b1_launches"]["path"],
+             "cifar10_calib_act": calib_act["b1_launches"]["path"],
              "sd_v1_stream_w4": sd_stream[4]["launches"]["group_norm"],
              "sd_v1_stream_w8": sd_stream[8]["launches"]["group_norm"]},
          "cifar10_step_ms": per_call_sum(rows, "ms"),
@@ -2440,6 +2865,10 @@ def main(argv=None) -> int:
                     f"the {b4_per_step} B4 sites of one CIFAR W4A8 int8 "
                     f"step at batch {BATCH} (one launch each); CUDA graph "
                     "over copies of each site's input"),
+         "launches_by_path": {
+             "cifar10_int8": int8_cli["launches"]["int8_conv"],
+             "cifar10_calib_act_int8":
+                 calib_act["int8"]["launches"]["int8_conv"]},
          "cudnn_bf16_ms": sum(r["cudnn_bf16_ms"] * r["per_call"]
                               for r in ints if r["kernel"] == "int8_conv"),
          "bit_equal_sites": sum(r["bit_equal"] and r["int32_exact"]
@@ -2488,7 +2917,8 @@ def main(argv=None) -> int:
               "ptxas": ptxas,
               "kernels": kernels, "kernel_shapes": rows, "gn_sd": gn_sd,
               "attn_kernels": attn, "fold": fold, "card_vs_cpu": card_cpu,
-              "sim": sim, "profile": prof, "calib": calib, "sd_spy": {
+              "sim": sim, "profile": prof, "calib": calib,
+              "calib_act": calib_act, "sd_spy": {
                   k: v for k, v in spy.items() if not k.endswith("shapes")},
               "sd_files": files, "sd_fold": sd_fold,
               "sd_card_vs_cpu": sd_cpu, "sd_sim": sd_sim,

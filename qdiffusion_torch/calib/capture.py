@@ -115,8 +115,9 @@ def capture_unit_io(model, qstate: dict, unit_name: str,
     """(inputs, output) of `unit_name` over the calibration set: inputs a
     tuple of stacked tensors (e.g. (x, temb)), the output stacked. With
     asym the inputs come from the weight-quantized prefix (hard
-    rounding). The act pass's act-quantized prefix and the latent
-    models' context input are ROADMAP A4b."""
+    rounding). The JAX function's act_quant prefix serves only its
+    ungrouped engine path, which the port does not have; the latent
+    models' context input is ROADMAP A4c."""
     names = (unit_name,)
     inps, out = _sweep(model, qstate, FP, names, cali_xs, cali_ts,
                        batch_size, want_out=True)[unit_name]

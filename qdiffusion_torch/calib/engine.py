@@ -1,22 +1,28 @@
-"""PTQ calibration, the weight pass (port of
-qdiffusion_tpu/calib/engine.py; reference flow
+"""PTQ calibration (port of qdiffusion_tpu/calib/engine.py; reference flow
 scripts/sample_diffusion_ddim.py:127-236).
 
   1. weight-quantizer scale init (per-channel min-max / MSE, from the
      weights; the reference does it through a dummy forward);
-  2. the AdaRound alphas of every unit initialised up front;
-  3. per capture group (calib/capture.py::GroupedCapture): one FP sweep
-     for the group's outputs, then per unit in model order the
-     asymmetric input capture (the weight-quantized prefix, units already
-     reconstructed hard-rounded) and `reconstruct_unit`. Each unit's
-     capture buffers are dropped before the next capture.
+  2. the AdaRound weight pass: every unit's alphas initialised up front,
+     then per capture group (calib/capture.py::GroupedCapture) one FP
+     sweep for the group's outputs and, per unit in model order, the
+     asymmetric input capture (the weight-quantized prefix, units
+     already reconstructed hard-rounded) and `reconstruct_unit`;
+  3. with quant_act, the activation pass: act scale init from
+     act_init_batch calibration rows drawn without replacement, an
+     optional running-stat EMA sweep, then per group one FP sweep for
+     the units' inputs and outputs and, per unit, the Fisher grads (when
+     the act opt_mode asks for them) and `reconstruct_unit(act_quant=
+     True)`.
 
-The result is one qstate in the torch layout (utils/checkpoints.py
-writes it in the JAX layout). The activation pass (act scale init,
-running-stat EMA, act-delta reconstruction) and the resumable
-checkpointer are ROADMAP A4b; `init_act_qstate` below is the first-batch
-act scale init the sim engine uses. The JAX config's `precompile` and
-`pipeline` fields schedule XLA compiles and have no eager counterpart.
+Each unit's capture buffers are dropped before the next capture. With a
+checkpointer (utils/checkpoints.py::CalibCheckpointer) each phase writes
+a full base snapshot before its unit loop, an increment every
+ckpt_every units, and the final qstate.npz; a run whose directory holds
+a marker resumes after the unit it names. The result is one qstate in
+the torch layout. The JAX config's `precompile` and `pipeline` fields
+schedule XLA compiles and have no eager counterpart. Conditional (latent
+model) calibration data is ROADMAP A4c.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from qdiffusion_torch.calib.capture import GroupedCapture
+from qdiffusion_torch.calib.fisher import save_grad_data
 from qdiffusion_torch.calib.recon import (
     ReconConfig,
     init_adaround_unit,
@@ -36,19 +43,33 @@ from qdiffusion_torch.calib.recon import (
 )
 from qdiffusion_torch.ops.qlayers import split_weight
 from qdiffusion_torch.quant.affine import init_state
-from qdiffusion_torch.quant.context import INIT, QuantCtx, QuantMode
+from qdiffusion_torch.quant.context import (
+    EMA,
+    EMA_SM_ONLY,
+    INIT,
+    QuantCtx,
+    QuantMode,
+)
 
 logger = logging.getLogger(__name__)
+
+WA = QuantMode(w=True, a=True)  # the act init's and EMA sweep's forward
 
 
 @dataclasses.dataclass(frozen=True)
 class CalibConfig:
     weight: ReconConfig = ReconConfig(iters=20000, p=2.0)
-    asym: bool = True  # unit inputs from the weight-quantized prefix
-    quant_act: bool = False  # the activation pass: ROADMAP A4b
+    act: ReconConfig = ReconConfig(iters=5000, lr=4e-4, p=2.4)
+    asym: bool = True  # weight pass: unit inputs from the quantized prefix
+    quant_act: bool = False  # run the activation pass
+    running_stat: bool = False  # EMA sweep after the act scale init
+    rs_sm_only: bool = False  # the EMA updates post-softmax quantizers only
     capture_batch: int = 8
+    act_init_batch: int = 64  # act init rows; also the EMA sweep's batch
+    sm_abit: int = 8  # post-softmax bits (16: its delta is not trained)
     alpha_dtype: str = "float32"  # AdaRound alpha storage dtype
     skip_units: Tuple[str, ...] = ()  # names excluded from reconstruction
+    ckpt_every: int = 8  # units between checkpoint increments
     capture_group_bytes: int = 3 << 30  # full-set FP capture bytes a group
 
 
@@ -70,6 +91,13 @@ def init_weight_qstate(model) -> dict:
     return qstate
 
 
+def _merge_collected(qstate: dict, collected: dict) -> dict:
+    new = {k: dict(v) for k, v in qstate.items()}
+    for name, slots in collected.items():
+        new.setdefault(name, {}).update(slots)
+    return new
+
+
 @torch.no_grad()
 def init_act_qstate(model, qstate: dict, xs: torch.Tensor,
                     ts: torch.Tensor, cs: torch.Tensor = None) -> dict:
@@ -77,15 +105,35 @@ def init_act_qstate(model, qstate: dict, xs: torch.Tensor,
     qnn.set_quant_state(True, True) + one forward,
     sample_diffusion_ddim.py:203-208). xs: NHWC; cs: the cross-attention
     context of a model that takes one. Returns a new qstate."""
-    ctx = QuantCtx(qstate, mode=QuantMode(w=True, a=True), collect=INIT)
+    ctx = QuantCtx(qstate, mode=WA, collect=INIT)
     if cs is None:
         model(xs, ts, ctx)
     else:
         model(xs, ts, ctx, cs)
-    new = {k: dict(v) for k, v in qstate.items()}
-    for name, slots in ctx.collected.items():
-        new.setdefault(name, {}).update(slots)
-    return new
+    return _merge_collected(qstate, ctx.collected)
+
+
+@torch.no_grad()
+def run_running_stat(model, qstate: dict, xs: torch.Tensor,
+                     ts: torch.Tensor, *, batch: int = 64,
+                     sm_only: bool = False) -> dict:
+    """EMA sweep over the calibration set in whole batches, each batch's
+    forward reading the stats the batch before left (reference
+    set_running_stat, quant_model.py:71-87; JAX engine.py:149-170)."""
+    collect = EMA_SM_ONLY if sm_only else EMA
+    for i in range(0, xs.shape[0] - batch + 1, batch):
+        ctx = QuantCtx(qstate, mode=WA, collect=collect)
+        model(xs[i:i + batch], ts[i:i + batch], ctx)
+        qstate = _merge_collected(qstate, ctx.collected)
+    return qstate
+
+
+def _act_init_indices(n: int, k: int,
+                      generator: torch.Generator) -> torch.Tensor:
+    """k of the n calibration rows, drawn without replacement on the
+    generator's device (JAX: jax.random.choice(..., replace=False))."""
+    return torch.randperm(n, generator=generator,
+                          device=generator.device)[:k]
 
 
 def _sync(t: torch.Tensor):
@@ -93,61 +141,191 @@ def _sync(t: torch.Tensor):
         torch.cuda.synchronize(t.device)
 
 
+class _Snapshots:
+    """The checkpointer's in-loop increments (JAX engine.py:395-420,
+    518-536): every ckpt_every units, the sites reconstructed since the
+    save before; a save that the checkpointer defers is retried at the
+    end of the group, with the last unit done."""
+
+    def __init__(self, checkpointer, every: int):
+        self.ckpt, self.every = checkpointer, every
+        self.pending: set = set()
+        self.due = False
+
+    def base(self, qstate: dict, phase: str, unit_idx: int):
+        if self.ckpt is not None:
+            t0 = time.perf_counter()
+            self.ckpt.save(qstate, phase, unit_idx, sites=None)
+            self.pending.clear()
+            logger.info("%s-phase base qstate snapshot written (%.1fs)",
+                        phase, time.perf_counter() - t0)
+
+    def unit_done(self, qstate: dict, phase: str, k: int, unit):
+        self.pending.update(unit.layer_names)
+        self.pending.add(unit.name)
+        self.last = (phase, k)
+        if self.ckpt is not None and (k + 1) % self.every == 0:
+            self._save(qstate)
+
+    def group_done(self, qstate: dict):
+        if self.due:
+            self._save(qstate)
+
+    def _save(self, qstate: dict):
+        phase, k = self.last
+        self.due = not self.ckpt.save(qstate, phase, k,
+                                      sites=sorted(self.pending))
+        if not self.due:
+            self.pending.clear()
+
+
 def calibrate(model, cali_data: Sequence[torch.Tensor],
               cfg: CalibConfig = CalibConfig(),
               generator: Optional[torch.Generator] = None,
-              qstate: Optional[dict] = None) -> dict:
-    """The AdaRound weight pass over every unit of `model`; returns the
-    calibrated qstate. cali_data: (xs NHWC, ts) on the model's device
-    (calib/samples.py::get_train_samples). generator draws every unit's
-    minibatches in turn (default: seed 0 on the data's device). qstate:
-    weight scales to start from (default: init_weight_qstate)."""
-    if cfg.quant_act:
-        raise NotImplementedError(
-            "the activation pass (quant_act) is ROADMAP A4b; this port "
-            "calibrates weights only")
+              qstate: Optional[dict] = None, checkpointer=None,
+              skip_weight_pass: bool = False) -> dict:
+    """The weight pass over every unit of `model`, then with
+    cfg.quant_act the activation pass; returns the calibrated qstate.
+    cali_data: (xs NHWC, ts) on the model's device
+    (calib/samples.py::get_train_samples). generator draws the act init
+    rows and every unit's minibatches in turn (default: seed 0 on the
+    data's device). qstate: the state to start from (default:
+    init_weight_qstate). checkpointer: snapshots, and a resume from the
+    marker it finds. skip_weight_pass: only the activation pass, on
+    `qstate`'s reconstructed weights (reference --resume_w)."""
     if len(cali_data) > 2:
         raise NotImplementedError(
-            "conditional calibration data is ROADMAP A4b")
+            "conditional calibration data (latent models) is ROADMAP A4c")
     xs, ts = cali_data
     if generator is None:
         generator = torch.Generator(device=xs.device).manual_seed(0)
+    start_phase, start_idx = "weight", 0
+    if skip_weight_pass:
+        if qstate is None:
+            raise ValueError("skip_weight_pass needs the weight pass's "
+                             "qstate")
+        start_phase = "act_init"
+    if checkpointer is not None:
+        saved, progress = checkpointer.load(xs.device)
+        if saved is not None:
+            qstate = saved
+            start_phase = progress["phase"]
+            start_idx = progress["unit_idx"] + 1
     if qstate is None:
         qstate = init_weight_qstate(model)
         logger.info("weight quantizer scales initialized (%d layers)",
                     len(qstate))
     units = model.units
-    names = [u.name for u in units
-             if u.name not in cfg.skip_units and u.layer_names]
     by_name = {u.name: (k, u) for k, u in enumerate(units)}
-    # every alpha up front (JAX engine.py:289-310): the quantized prefix of
-    # each asym capture then reads the same qstate structure throughout
-    for n in names:
-        qstate = init_adaround_unit(model, qstate, by_name[n][1],
-                                    skip_existing=True,
-                                    alpha_dtype=cfg.alpha_dtype)
     gc = GroupedCapture(model, batch_size=cfg.capture_batch,
                         group_bytes=cfg.capture_group_bytes)
+    snaps = _Snapshots(checkpointer, cfg.ckpt_every)
+
+    def todo(group, first):
+        return any(by_name[n][0] >= first for n in group)
+
+    if start_phase == "weight":
+        names = [u.name for u in units
+                 if u.name not in cfg.skip_units and u.layer_names]
+        # every alpha up front (JAX engine.py:289-310): the quantized
+        # prefix of each asym capture then reads the same qstate structure
+        # throughout
+        for n in names:
+            qstate = init_adaround_unit(model, qstate, by_name[n][1],
+                                        skip_existing=True,
+                                        alpha_dtype=cfg.alpha_dtype)
+        if checkpointer is not None and not checkpointer.has_base:
+            snaps.base(qstate, "weight", start_idx - 1)
+        for group in gc.plan(names, xs, ts) if names else []:
+            if not todo(group, start_idx):
+                continue
+            fp = gc.fp_capture(group, xs, ts)
+            if cfg.asym:
+                # asym reconstruction reads only the FP output; the inputs
+                # come from the quantized-prefix sweep, so drop the FP
+                # inputs now
+                fp = {n: (None, out) for n, (inp, out) in fp.items()}
+            for name in group:
+                k, unit = by_name[name]
+                inps, out = fp.pop(name)
+                if k < start_idx:
+                    continue
+                t0 = time.perf_counter()
+                if cfg.asym:
+                    inps = gc.quant_capture(qstate, name, xs, ts)
+                _sync(out)
+                t_cap = time.perf_counter() - t0
+                grads = None if cfg.weight.opt_mode == "mse" else \
+                    save_grad_data(model, qstate, name, xs, ts,
+                                   batch_size=cfg.capture_batch)
+                qstate = reconstruct_unit(model, qstate, unit, inps, out,
+                                          cfg.weight, sm_abit=cfg.sm_abit,
+                                          cached_grads=grads,
+                                          generator=generator,
+                                          alpha_dtype=cfg.alpha_dtype)
+                # free this unit's buffers before the next capture
+                del inps, out, grads
+                _sync(xs)
+                logger.info("[%d/%d] weight recon %-28s %.1fs (capture "
+                            "%.1fs)", k + 1, len(units), name,
+                            time.perf_counter() - t0, t_cap)
+                snaps.unit_done(qstate, "weight", k, unit)
+            del fp
+            snaps.group_done(qstate)
+        start_idx = 0
+
+    if not cfg.quant_act:
+        if checkpointer is not None:
+            checkpointer.finalize(qstate)
+        return qstate
+
+    if start_phase in ("weight", "act_init"):
+        t0 = time.perf_counter()
+        n_init = min(cfg.act_init_batch, xs.shape[0])
+        idx = _act_init_indices(xs.shape[0], n_init, generator)
+        qstate = init_act_qstate(model, qstate, xs[idx], ts[idx])
+        logger.info("activation quantizer scales initialized (%d rows)",
+                    n_init)
+        if cfg.running_stat:
+            qstate = run_running_stat(model, qstate, xs, ts,
+                                      batch=cfg.act_init_batch,
+                                      sm_only=cfg.rs_sm_only)
+            logger.info("running-stat EMA sweep done")
+        _sync(xs)
+        logger.info("act init%s %.1fs", " + EMA" * cfg.running_stat,
+                    time.perf_counter() - t0)
+        start_idx = 0
+        # the init and the sweep touch every site: a fresh full base,
+        # before the unit loop allocates capture buffers
+        snaps.base(qstate, "act", -1)
+
+    names = [u.name for u in units if u.name not in cfg.skip_units]
     for group in gc.plan(names, xs, ts) if names else []:
+        if not todo(group, start_idx):
+            continue
         fp = gc.fp_capture(group, xs, ts)
-        if cfg.asym:
-            # asym reconstruction reads only the FP output; the inputs come
-            # from the quantized-prefix sweep, so drop the FP inputs now
-            fp = {n: (None, out) for n, (inp, out) in fp.items()}
         for name in group:
             k, unit = by_name[name]
-            t0 = time.perf_counter()
             inps, out = fp.pop(name)
-            if cfg.asym:
-                inps = gc.quant_capture(qstate, name, xs, ts)
-            _sync(out)
-            t_cap = time.perf_counter() - t0
+            if k < start_idx:
+                continue
+            t0 = time.perf_counter()
+            grads = None if cfg.act.opt_mode == "mse" else \
+                save_grad_data(model, qstate, name, xs, ts, act_quant=True,
+                               batch_size=cfg.capture_batch)
             qstate = reconstruct_unit(model, qstate, unit, inps, out,
-                                      cfg.weight, generator=generator,
-                                      alpha_dtype=cfg.alpha_dtype)
-            del inps, out  # free this unit's buffers before the next capture
+                                      cfg.act, act_quant=True,
+                                      sm_abit=cfg.sm_abit,
+                                      cached_grads=grads,
+                                      generator=generator)
+            del inps, out, grads
             _sync(xs)
-            logger.info("[%d/%d] weight recon %-28s %.1fs (capture %.1fs)",
-                        k + 1, len(units), name, time.perf_counter() - t0,
-                        t_cap)
+            logger.info("[%d/%d] act recon    %-28s %.1fs", k + 1,
+                        len(units), name, time.perf_counter() - t0)
+            snaps.unit_done(qstate, "act", k, unit)
+        del fp
+        snaps.group_done(qstate)
+
+    if checkpointer is not None:
+        checkpointer.finalize(qstate)
     return qstate

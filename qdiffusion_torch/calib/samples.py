@@ -4,7 +4,7 @@ qdiff/utils.py:325-348): a saved sampling trajectory sliced at `cali_st`
 evenly spaced steps, `cali_n` samples at each.
 
 The conditional branch (cond and uncond contexts back to back) comes
-with the latent models' calibration, not ported yet.
+with the latent models' calibration, ROADMAP A4c.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ def get_train_samples(trajectory: dict, cali_n: int, cali_st: int,
     if cond:
         raise NotImplementedError(
             "conditional calibration samples come with the latent models' "
-            "calibration (ROADMAP A4b)")
+            "calibration (ROADMAP A4c)")
     xs, ts = trajectory["xs"], trajectory["ts"]
     nsteps = xs.shape[0]
     if cali_st == 1:

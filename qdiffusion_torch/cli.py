@@ -1,14 +1,16 @@
 """Command-line entry point of the port: the `sample` subcommand of
-qdiffusion_tpu/cli.py for the pixel, ldm and sd families, and the weight
-pass of `make-cali-data` and `calibrate` for the pixel family:
+qdiffusion_tpu/cli.py for the pixel, ldm and sd families, and
+`make-cali-data` and `calibrate` (the weight pass, then the activation
+pass with --quant-act) for the pixel family:
 
   python -m qdiffusion_torch.cli make-cali-data --task cifar10 \\
       --n 256 --out cali/traj.npz
   python -m qdiffusion_torch.cli calibrate --task cifar10 \\
-      --cali-data cali/traj.npz --weight-bit 4 --split --logdir logs
+      --cali-data cali/traj.npz --weight-bit 4 --split --quant-act \\
+      --running-stat --run-dir logs/w4a8
   python -m qdiffusion_torch.cli sample --task cifar10 \\
-      --qstate logs/calib-cifar10-<time>/qstate.npz --weight-bit 4 \\
-      --split --engine fold
+      --qstate logs/w4a8/qstate.npz --weight-bit 4 --quant-act --split \\
+      --engine int8
 
   python -m qdiffusion_torch.cli sample --task cifar10 \\
       --qstate qstate.npz --weight-bit 4 --engine fold --dtype bfloat16 \\
@@ -37,11 +39,14 @@ are not ported. The output is the bulk uint8 npz of the JAX CLI
 
 make-cali-data writes the FP sampling trajectory (JAX keys "xs" [S, B,
 H, W, C] and "ts" [S, B]); its initial noise is drawn per item as
-`sample` draws it. calibrate runs the AdaRound weight pass
-(calib/engine.py) and writes <run dir>/qstate.npz in the JAX layout,
-which `sample --qstate` and the JAX package both read. The activation
-pass (--quant-act), --resume-w and the latent tasks exit with a message:
-they are ROADMAP A4b.
+`sample` draws it. calibrate (calib/engine.py) runs the AdaRound weight
+pass, then with --quant-act the activation pass; --resume-w QSTATE runs
+only the activation pass on a weight pass's qstate. It snapshots into
+the run directory (utils/checkpoints.py::CalibCheckpointer) and writes
+<run dir>/qstate.npz in the JAX layout, which `sample --qstate` and the
+JAX package both read; `--run-dir` of a run that stopped resumes it
+after the last snapshot, whichever package wrote it. The latent tasks
+exit with a message: their calibration is ROADMAP A4c.
 """
 
 from __future__ import annotations
@@ -184,12 +189,12 @@ def _item_noise(seeds, shape) -> torch.Tensor:
         for s in seeds])
 
 
-A4B = "ROADMAP A4b (not ported yet; the port calibrates weights only)"
+A4C = "ROADMAP A4c (not ported yet; the port calibrates the pixel task)"
 
 
 def _pixel_only(task, what: str):
     if task.family != "pixel":
-        raise SystemExit(f"{what} for a {task.family} task is {A4B}")
+        raise SystemExit(f"{what} for a {task.family} task is {A4C}")
 
 
 def cmd_make_cali_data(args) -> dict:
@@ -223,22 +228,19 @@ def cmd_make_cali_data(args) -> dict:
 def cmd_calibrate(args) -> dict:
     from qdiffusion_torch.calib.engine import calibrate
     from qdiffusion_torch.calib.samples import get_train_samples
-    from qdiffusion_torch.config import QuantFlags
-    from qdiffusion_torch.utils.checkpoints import save_qstate
+    from qdiffusion_torch.utils.checkpoints import CalibCheckpointer, \
+        load_qstate
 
-    if args.quant_act:
-        raise SystemExit(f"--quant-act: the activation pass is {A4B}")
-    if args.resume_w:
-        raise SystemExit(f"--resume-w: resuming into the activation pass "
-                         f"is {A4B}")
     task = resolve_task(args)
     _pixel_only(task, "calibrate")
     device = resolve_device(args.device)
-    qflags = QuantFlags(
-        weight_bit=args.weight_bit, split=args.split, cali_st=args.cali_st,
-        cali_n=args.cali_n, cali_batch_size=args.cali_batch_size,
-        cali_iters=args.cali_iters, alpha_dtype=args.alpha_dtype,
-        capture_group_bytes=int(args.capture_group_mb) << 20)
+    qflags = _quant_flags(
+        args, cali_st=args.cali_st, cali_n=args.cali_n,
+        cali_batch_size=args.cali_batch_size, cali_iters=args.cali_iters,
+        cali_iters_a=args.cali_iters_a, cali_lr=args.cali_lr,
+        cali_p=args.cali_p, alpha_dtype=args.alpha_dtype,
+        capture_group_bytes=int(args.capture_group_mb) << 20,
+        act_init_batch=args.act_init_batch)
     run_dir = Path(args.run_dir) if args.run_dir else Path(args.logdir) \
         / f"calib-{task.name}-{datetime.now():%Y-%m-%d-%H-%M-%S}"
     run_dir.mkdir(parents=True, exist_ok=True)
@@ -263,14 +265,21 @@ def cmd_calibrate(args) -> dict:
         del traj
         logging.getLogger(__name__).info(
             "calibration data: %s", [tuple(c.shape) for c in cali])
+        qstate0 = None
+        if args.resume_w:
+            # reference --resume_w: a weight pass's qstate, then only the
+            # activation pass
+            qstate0 = load_qstate(args.resume_w, device)
+            logging.getLogger(__name__).info(
+                "resuming from weight qstate %s", args.resume_w)
         t0 = time.perf_counter()
-        qstate = calibrate(model, cali, qflags.calib_config(),
-                           torch.Generator(device=device).manual_seed(
-                               args.seed))
+        calibrate(model, cali, qflags.calib_config(),
+                  torch.Generator(device=device).manual_seed(args.seed),
+                  qstate=qstate0, checkpointer=CalibCheckpointer(run_dir),
+                  skip_weight_pass=qstate0 is not None)
         _sync(device)
         seconds = time.perf_counter() - t0
         path = run_dir / "qstate.npz"
-        save_qstate(path, qstate)
     finally:
         root.removeHandler(log)
         root.setLevel(level)
@@ -286,8 +295,19 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def cmd_sample(args) -> dict:
+def _quant_flags(args, **calib):
+    """QuantFlags from the quantization flags that `sample` and
+    `calibrate` share (JAX cli.py:682-695), plus calibrate's own."""
     from qdiffusion_torch.config import QuantFlags
+
+    return QuantFlags(
+        weight_bit=args.weight_bit, quant_act=args.quant_act,
+        act_bit=args.act_bit, a_sym=args.a_sym, sm_abit=args.sm_abit,
+        split=args.split, running_stat=args.running_stat,
+        rs_sm_only=args.rs_sm_only, a_min_max=args.a_min_max, **calib)
+
+
+def cmd_sample(args) -> dict:
     from qdiffusion_torch.deploy import fold_weights, make_quantized_step
     from qdiffusion_torch.quant.context import QuantMode
     from qdiffusion_torch.samplers.ddim import inverse_data_transform
@@ -300,9 +320,7 @@ def cmd_sample(args) -> dict:
           "precision)")
     task = resolve_task(args)
     pixel = task.family == "pixel"
-    qflags = QuantFlags(weight_bit=args.weight_bit, quant_act=args.quant_act,
-                        act_bit=args.act_bit, split=args.split) \
-        if args.qstate else None
+    qflags = _quant_flags(args) if args.qstate else None
     model, pipe = build_model_and_pipeline(task, qflags, device)
     model.load_state_dict(load_fp_params(args.ckpt, model) if args.ckpt
                           else model.init_params(0))
@@ -415,6 +433,22 @@ def cmd_sample(args) -> dict:
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m qdiffusion_torch.cli")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    def add_quant_flags(sp):
+        sp.add_argument("--weight-bit", type=int, default=8)
+        sp.add_argument("--quant-act", action="store_true",
+                        help="activation quantizers (calibrate: run the "
+                             "activation pass)")
+        sp.add_argument("--act-bit", type=int, default=8)
+        sp.add_argument("--a-sym", action="store_true")
+        sp.add_argument("--sm-abit", type=int, default=8)
+        sp.add_argument("--split", action="store_true")
+        sp.add_argument("--running-stat", action="store_true")
+        sp.add_argument("--rs-sm-only", action="store_true",
+                        help="running stats only for post-softmax "
+                             "quantizers")
+        sp.add_argument("--a-min-max", action="store_true",
+                        help="act scale init 'max' instead of 'mse' (LDM)")
     sp = sub.add_parser("sample", help="generate images")
     sp.add_argument("--task", required=True)
     sp.add_argument("--ckpt", help="FP UNet params npz (JAX save_pytree "
@@ -432,10 +466,7 @@ def main(argv=None):
                     help="sampler (default: task preset; latent tasks: "
                          "ddim or plms)")
     sp.add_argument("--qstate", help="calibrated qstate npz (JAX format)")
-    sp.add_argument("--weight-bit", type=int, default=8)
-    sp.add_argument("--quant-act", action="store_true")
-    sp.add_argument("--act-bit", type=int, default=8)
-    sp.add_argument("--split", action="store_true")
+    add_quant_flags(sp)
     sp.add_argument("--engine", default="sim",
                     choices=["sim", "fold", "int8", "stream"])
     sp.add_argument("--stream-convs", action="store_true",
@@ -471,21 +502,27 @@ def main(argv=None):
     sp.set_defaults(fn=cmd_make_cali_data)
 
     sp = sub.add_parser("calibrate",
-                        help="AdaRound weight calibration -> qstate.npz")
+                        help="PTQ calibration -> <run dir>/qstate.npz")
     sp.add_argument("--task", required=True)
     sp.add_argument("--ckpt", help="FP UNet params npz (JAX save_pytree "
                                    "format)")
     sp.add_argument("--cali-data", required=True)
-    sp.add_argument("--resume-w", help="weight-pass qstate to resume the "
-                                       "activation pass from (A4b)")
-    sp.add_argument("--weight-bit", type=int, default=8)
-    sp.add_argument("--quant-act", action="store_true",
-                    help="the activation pass (A4b)")
-    sp.add_argument("--split", action="store_true")
+    sp.add_argument("--resume-w", help="a weight pass's qstate npz: run "
+                                       "only the activation pass on it")
+    add_quant_flags(sp)
     sp.add_argument("--cali-st", type=int, default=20)
     sp.add_argument("--cali-n", type=int, default=256)
     sp.add_argument("--cali-batch-size", type=int, default=32)
-    sp.add_argument("--cali-iters", type=int, default=20000)
+    sp.add_argument("--cali-iters", type=int, default=20000,
+                    help="weight-pass iterations per unit")
+    sp.add_argument("--cali-iters-a", type=int, default=5000,
+                    help="act-pass iterations per unit")
+    sp.add_argument("--cali-lr", type=float, default=4e-4,
+                    help="act-delta learning rate (cosine-annealed)")
+    sp.add_argument("--cali-p", type=float, default=2.4,
+                    help="act-pass Lp norm")
+    sp.add_argument("--act-init-batch", type=int, default=64,
+                    help="act scale-init rows and running-stat batch")
     sp.add_argument("--capture-group-mb", type=int, default=3072,
                     help="grouped-capture residency cap in MB")
     sp.add_argument("--alpha-dtype", choices=("float32", "bfloat16"),
@@ -495,7 +532,8 @@ def main(argv=None):
     sp.add_argument("--logdir", default="logs")
     sp.add_argument("--run-dir", default=None,
                     help="write into this run directory instead of a new "
-                         "timestamped one under --logdir")
+                         "timestamped one under --logdir; a run that "
+                         "stopped there resumes after its last snapshot")
     sp.add_argument("--seed", type=int, default=1234)
     sp.add_argument("--device", default="cuda")
     sp.set_defaults(fn=cmd_calibrate)

@@ -3,9 +3,8 @@ qdiffusion_tpu/config.py). `cifar10` reproduces the reference's
 configs/cifar10.yml with the sample_diffusion_ddim.py defaults; `sd_v1`
 its configs/stable-diffusion/v1-inference.yaml with the txt2img.py
 sampler (PLMS-50, guidance 7.5). The LSUN presets are not ported.
-QuantFlags carries the weight pass's calibration flags; the activation
-pass's (cali_iters_a, cali_lr, cali_p, running_stat, rs_sm_only,
-act_init_batch) come with it (ROADMAP A4b)."""
+QuantFlags carries the calibration flags of both passes and maps them
+into a CalibConfig as the JAX package's does (config.py:96-107)."""
 
 from __future__ import annotations
 
@@ -49,20 +48,32 @@ class QuantFlags:
     a_sym: bool = False
     sm_abit: int = 8
     split: bool = False
+    running_stat: bool = False  # EMA sweep after the act scale init
+    rs_sm_only: bool = False  # running stats for post-softmax only
     a_min_max: bool = False  # LDM: act scale init 'max' instead of 'mse'
     cali_st: int = 20  # trajectory steps the calibration set samples
     cali_n: int = 256  # samples per step
     cali_batch_size: int = 32  # reconstruction minibatch
-    cali_iters: int = 20000  # reconstruction iterations per unit
-    capture_group_bytes: int = 3 << 30  # grouped-capture residency cap
+    cali_iters: int = 20000  # weight-pass iterations per unit
+    cali_iters_a: int = 5000  # act-pass iterations per unit
+    cali_lr: float = 4e-4  # act-delta learning rate
+    cali_p: float = 2.4  # act-pass Lp norm
     alpha_dtype: str = "float32"  # AdaRound alpha storage dtype
+    capture_group_bytes: int = 3 << 30  # grouped-capture residency cap
+    act_init_batch: int = 64  # act scale-init rows and EMA sweep batch
 
     def calib_config(self) -> CalibConfig:
         return CalibConfig(
             weight=ReconConfig(iters=self.cali_iters,
                                batch_size=self.cali_batch_size, p=2.0),
-            quant_act=self.quant_act, alpha_dtype=self.alpha_dtype,
-            capture_group_bytes=self.capture_group_bytes)
+            act=ReconConfig(iters=self.cali_iters_a,
+                            batch_size=self.cali_batch_size,
+                            lr=self.cali_lr, p=self.cali_p),
+            quant_act=self.quant_act, running_stat=self.running_stat,
+            rs_sm_only=self.rs_sm_only, sm_abit=self.sm_abit,
+            alpha_dtype=self.alpha_dtype,
+            capture_group_bytes=self.capture_group_bytes,
+            act_init_batch=self.act_init_batch)
 
     def policy_ddim(self) -> QuantPolicy:
         """CIFAR policy: 'max' scale methods

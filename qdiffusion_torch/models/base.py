@@ -108,8 +108,11 @@ class QuantModelBase(torch.nn.Module):
         return cfg
 
     def _unit_call(self, ctx: QuantCtx, name: str, fn: Callable, *inps):
-        """fn(*inps), recorded into ctx when `name` is a capture target
-        (JAX base.py:56-63; the Fisher `substitute` is not ported)."""
+        """fn(*inps), recorded into ctx when `name` is a capture target;
+        ctx.substitute[name] in its place when the ctx has one, and then
+        the unit does not run (JAX base.py:56-63)."""
+        if name in ctx.substitute:
+            return ctx.substitute[name]
         out = fn(*inps)
         ctx.capture_io(name, inps if len(inps) > 1 else inps[0], out)
         return out

@@ -68,13 +68,21 @@ def lp_loss(pred: torch.Tensor, tgt: torch.Tensor, p: float = 2.0,
 
 def fake_quant(x: torch.Tensor, delta, zero_point,
                spec: AffineQuantizerSpec) -> torch.Tensor:
-    """Quantize-dequantize. Grid math in f32; result in x's dtype."""
+    """Quantize-dequantize. Grid math in f32; result in x's dtype.
+
+    The clip is jnp.clip's minimum(maximum(x, lo), hi), not torch.clamp:
+    the values are the same, but an element exactly on a bound gets half
+    the gradient (the tie is split between x and the bound), as in JAX,
+    where torch.clamp passes it whole. The act pass differentiates with
+    respect to delta, and every activation that rounds to the first or
+    last level sits exactly on a bound."""
     n_levels = spec.n_levels
     x_int = round_ste(x.float() / delta) + zero_point
-    if spec.symmetric:
-        x_quant = torch.clamp(x_int, -n_levels - 1, n_levels)
-    else:
-        x_quant = torch.clamp(x_int, 0, n_levels - 1)
+    lo, hi = (torch.full((), float(v), dtype=x_int.dtype,
+                         device=x_int.device)
+              for v in ((-n_levels - 1, n_levels) if spec.symmetric
+                        else (0, n_levels - 1)))
+    x_quant = torch.minimum(torch.maximum(x_int, lo), hi)
     return ((x_quant - zero_point) * delta).to(x.dtype)
 
 

@@ -19,8 +19,12 @@ Calibration (calib/): `capture` names the reconstruction units whose
 (input, output) a forward records into `captured`, and
 `differentiable=True` marks a forward that autograd differentiates, so
 the models keep to ops with a backward (the plain GroupNorm, not kernel
-B1). The JAX ctx's `substitute` (Fisher block gradients) and the
-EMA_SM_ONLY collect mode belong to the activation pass, not ported yet.
+B1). `substitute` maps a unit name to a tensor that the forward uses in
+place of that unit's output (models/base.py::_unit_call): the Fisher
+block gradients (calib/fisher.py) differentiate the model output with
+respect to it. `collect` is INIT (first-batch act scale init), EMA
+(running-stat update of every act quantizer) or EMA_SM_ONLY (only the
+post-softmax `sm` quantizers).
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ class QuantMode:
 # collect modes
 INIT = "init"  # first-batch scale init for act quantizers
 EMA = "ema"  # running-stat momentum update
+EMA_SM_ONLY = "ema_sm_only"  # update only post-softmax quantizers
 
 ENGINES = ("sim", "fold", "int8", "stream")
 
@@ -63,6 +68,7 @@ class QuantCtx:
                  collect: Optional[str] = None,
                  capture: Union[str, Collection[str], None] = None,
                  engine: str = "sim", packed: Optional[dict] = None,
+                 substitute: Optional[dict] = None,
                  differentiable: bool = False, conv_stream: str = "auto"):
         if engine not in ENGINES:
             raise NotImplementedError(
@@ -72,6 +78,10 @@ class QuantCtx:
         self.collect = collect
         self.capture = capture  # unit name(s) whose (input, output) to record
         self.captured: dict = {}
+        # {unit name: tensor}: the unit's output replaced by the tensor
+        # (JAX context.py:68-73, the reference's backward hook GetLayerGrad,
+        # qdiff/utils.py:271-308)
+        self.substitute: dict = substitute or {}
         self.engine = engine
         self.packed: dict = packed or {}
         # conv_stream (stream engine): 'auto' streams a packed conv only
@@ -110,13 +120,14 @@ class QuantCtx:
     def act_quant(self, name: str, slot: str, x: torch.Tensor,
                   spec: AffineQuantizerSpec) -> torch.Tensor:
         """collect=INIT: init delta/zp from this batch and record it;
-        collect=EMA: momentum-update recorded stats."""
+        collect=EMA / EMA_SM_ONLY: momentum-update the recorded stats (of
+        every slot / of `sm` slots only)."""
         if self.collect == INIT:
             st = self._get(name, slot) or init_state(x, spec)
             self._put(name, slot, st)
-        elif self.collect == EMA:
+        elif self.collect in (EMA, EMA_SM_ONLY):
             st = self._get(name, slot)
-            if st is not None:
+            if st is not None and (self.collect == EMA or slot == "sm"):
                 st = ema_update(st, x, spec)
                 self._put(name, slot, st)
         else:

@@ -161,7 +161,7 @@ def test_trajectory_and_train_samples_match_jax(tiny):
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
                                        atol=1e-5)
-    with pytest.raises(NotImplementedError, match="A4b"):
+    with pytest.raises(NotImplementedError, match="A4c"):
         get_train_samples(traj, 3, 4, cond=True)
 
 
@@ -335,9 +335,3 @@ def test_calibrate_loads_in_jax_and_samples_close(tiny, tmp_path,
     print(f"fold DDIM-4 with the port's qstate, port vs JAX: relative L2 "
           f"{rel:.2e}")
     assert rel <= 5e-2, rel
-
-
-def test_calibrate_refuses_the_activation_pass(tiny):
-    with pytest.raises(NotImplementedError, match="A4b"):
-        calibrate(tiny["tm"], (_t(tiny["xs"]), _t(tiny["ts"])),
-                  CalibConfig(quant_act=True))

@@ -203,6 +203,68 @@ def test_tiny_recon_gradient_reaches_every_alpha_on_card(card):
                                    atol=1e-3 * float(want.abs().max()))
 
 
+def test_tiny_act_recon_card_matches_cpu(card, monkeypatch):
+    """An act reconstruction (32 iterations) of a ResnetBlock unit
+    (mid.block_1) of the tiny split W4A8 UNet on the card and on the CPU,
+    from the same FP captures, qstate and minibatch indices: B1 is not
+    launched inside, and every delta agrees within 1e-4 relative, or
+    within four times the CPU's own spread when its inputs carry 2e-6
+    relative noise (four seeds), where that is larger: a delta's gradient
+    is a sum of rounding residuals that cancel, so the two devices' f32
+    noise moves a bucket and Adam carries it on, as between the port and
+    JAX (tests/test_torch_calib_act.py)."""
+    from qdiffusion_torch import resolve_device
+    from qdiffusion_torch.calib import recon
+    from qdiffusion_torch.calib.capture import capture_unit_io
+    from qdiffusion_torch.calib.engine import init_act_qstate, \
+        init_weight_qstate
+
+    resolve_device(card)
+    cpu_m, card_m = _tiny_pair(card, weight_bit=4, quant_act=True,
+                               split=True)
+    rng = np.random.default_rng(5)
+    xs = torch.from_numpy(rng.standard_normal((16, 16, 16, 3)).astype(
+        np.float32))
+    ts = torch.linspace(0.0, 999.0, 16)
+    q = init_act_qstate(cpu_m, init_weight_qstate(cpu_m), xs[:8], ts[:8])
+    inps, out = capture_unit_io(cpu_m, q, "mid.block_1", xs, ts,
+                                batch_size=8)
+    idx = torch.randint(0, 16, (32, 8),
+                        generator=torch.Generator().manual_seed(0))
+    monkeypatch.setattr(recon, "_batch_indices",
+                        lambda i, n, bs, gen: idx[i])
+    cfg = recon.ReconConfig(iters=32, batch_size=8, p=2.4)
+
+    def run(m, dev, seed=0):
+        noise = [1.0 if seed == 0 else 1.0 + 2e-6 * torch.randn(
+            a.shape, generator=torch.Generator().manual_seed(seed))
+            for a in inps]
+        unit = next(u for u in m.units if u.name == "mid.block_1")
+        qd = {s: {k: {n: v.to(dev) for n, v in st.items()}
+                  for k, st in sl.items()} for s, sl in q.items()}
+        new = recon.reconstruct_unit(
+            m, qd, unit, tuple((a * z).to(dev).contiguous(
+                memory_format=torch.channels_last) if a.ndim == 4
+                else (a * z).to(dev) for a, z in zip(inps, noise)),
+            out.to(dev).contiguous(memory_format=torch.channels_last), cfg,
+            act_quant=True)
+        return {site: {k: d.cpu() for k, d in sl.items()} for site, sl
+                in recon.extract_trainable(new, unit, "act").items()}
+
+    before = fused_group_norm.launches
+    got = run(card_m, card)
+    assert fused_group_norm.launches == before
+    want = run(cpu_m, "cpu")
+    spread = [run(cpu_m, "cpu", seed) for seed in (1, 2, 3, 4)]
+    assert sorted(want) == [f"mid.block_1.{n}" for n in
+                            ("conv1", "conv2", "temb_proj")]
+    for site, slots in want.items():
+        for slot, d in slots.items():
+            rel = lambda a: float((a - d).abs() / d.abs())  # noqa: E731
+            bound = max(1e-4, 4.0 * max(rel(r[site][slot]) for r in spread))
+            assert rel(got[site][slot]) <= bound, (site, slot)
+
+
 # -- B2 / B3: the CUDA flash-attention kernels -----------------------------
 
 def _attn_inputs(card, shape, dtype, seed=0):

@@ -7,6 +7,8 @@ uint8 images may differ by one level where f32 rounding lands on a
 boundary (observed: none or a handful of pixels).
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -27,7 +29,7 @@ from qdiffusion_torch.config import (
     QuantFlags, SamplerConfig, ScheduleConfig, TaskConfig)
 from qdiffusion_torch.convert import to_jax_params
 from qdiffusion_torch.models.unet_ddim import DDIMUNet, DDIMUNetConfig
-from qdiffusion_torch.utils.checkpoints import save_qstate
+from qdiffusion_torch.utils.checkpoints import load_qstate, save_qstate
 
 torch.set_num_threads(1)
 
@@ -162,18 +164,130 @@ def test_make_cali_data_calibrate_then_sample(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["calibrate", "--task", "tiny", "--quant-act"],
-    ["calibrate", "--task", "tiny", "--resume-w", "w.npz"],
     ["calibrate", "--task", "sd_v1"],
     ["make-cali-data", "--task", "sd_v1"],
 ])
 def test_calibration_beyond_the_weight_pass_is_refused(argv, tmp_path):
-    """The activation pass, --resume-w and the latent tasks exit naming
-    the roadmap item that brings them, before any work."""
+    """Calibration of the latent tasks exits naming the roadmap item that
+    brings it, before any work."""
     if argv[0] == "calibrate":
         argv = argv + ["--cali-data", str(tmp_path / "none.npz")]
     else:
         argv = argv + ["--out", str(tmp_path / "t.npz")]
-    with pytest.raises(SystemExit, match="A4b"):
+    with pytest.raises(SystemExit, match="A4c"):
         cli.main(argv + ["--device", "cpu"])
     assert not list(tmp_path.iterdir())
+
+
+CALIB = ["--task", "tiny", "--weight-bit", "4", "--split", "--cali-st", "4",
+         "--cali-n", "4", "--cali-batch-size", "4", "--cali-iters", "4",
+         "--cali-iters-a", "4", "--act-init-batch", "8", "--device", "cpu"]
+ACT = ["--quant-act", "--running-stat"]
+
+
+@pytest.fixture(scope="module")
+def cli_runs(tmp_path_factory):
+    """A tiny trajectory, then two runs of `calibrate` on it: the weight
+    pass alone (w/) and both passes with the running-stat sweep (wa/)."""
+    d = tmp_path_factory.mktemp("calib")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(config.PRESETS, "tiny", TINY_TASK)
+        cli.main(["make-cali-data", "--task", "tiny", "--n", "8",
+                  "--timesteps", "8", "--out", str(d / "traj.npz"),
+                  "--device", "cpu"])
+        for run, extra in (("w", []), ("wa", ACT)):
+            cli.main(["calibrate", "--cali-data", str(d / "traj.npz"),
+                      "--run-dir", str(d / run), *CALIB, *extra])
+    return d
+
+
+def _act_sites(q) -> dict:
+    return {(s, k): st for s, sl in q.items() for k, st in sl.items()
+            if k not in ("w", "w0")}
+
+
+def test_calibrate_quant_act_writes_act_deltas(cli_runs):
+    """`calibrate --quant-act --running-stat`: every layer's input
+    quantizer (and each split layer's second) calibrated with its EMA
+    stats, alphas on every weight quantizer, the run directory finalized;
+    the JAX package reads the file."""
+    path = cli_runs / "wa" / "qstate.npz"
+    assert not (cli_runs / "wa" / "calib_progress.json").exists()
+    q = load_qstate(path)
+    m = _model(weight_bit=4, quant_act=True, split=True)
+    for name, cfg in m.layer_cfgs.items():
+        for slot in ("a", "a0") if cfg.split else ("a",):
+            assert {"delta", "zero_point", "x_min", "x_max"} <= set(
+                q[name][slot]), (name, slot)
+        assert "alpha" in q[name]["w"], name
+    assert {"q", "k", "v", "sm"} <= set(q["mid.attn_1"])
+    jq = jax_load_qstate(path)
+    assert float(jq["mid.attn_1"]["sm"]["delta"]) == float(
+        q["mid.attn_1"]["sm"]["delta"])
+
+
+def test_resume_w_runs_only_the_act_pass(cli_runs, tmp_path, monkeypatch):
+    """`--resume-w` on the weight pass's qstate: only act reconstructions
+    run, and every weight quantizer leaves as it came."""
+    from qdiffusion_torch.calib import engine
+
+    real, modes = engine.reconstruct_unit, []
+
+    def spy(*a, **kw):
+        modes.append(kw.get("act_quant", False))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(engine, "reconstruct_unit", spy)
+    wq = cli_runs / "w" / "qstate.npz"
+    res = cli.main(["calibrate", "--cali-data", str(cli_runs / "traj.npz"),
+                    "--resume-w", str(wq), "--run-dir", str(tmp_path / "a"),
+                    *CALIB, *ACT])
+    assert modes and all(modes)
+    want, got = load_qstate(wq), load_qstate(res["path"])
+    for site, slots in want.items():
+        for slot, st in slots.items():
+            for leaf, t in st.items():
+                assert torch.equal(got[site][slot][leaf], t), (site, slot)
+    assert _act_sites(got) and not _act_sites(want)
+
+
+def test_run_dir_resumes(cli_runs, tmp_path, monkeypatch):
+    """A run that stops in its activation pass resumes through the same
+    `--run-dir`: the rerun starts after the marker's unit and finishes."""
+    from qdiffusion_torch.calib import engine
+
+    real, calls = engine.reconstruct_unit, []
+
+    n_units = len(_model(weight_bit=4, split=True).units)
+
+    def spy(*a, **kw):
+        if crash and len(calls) == n_units + 10:
+            raise RuntimeError("simulated crash")
+        calls.append(a[2].name)
+        return real(*a, **kw)
+
+    argv = ["calibrate", "--cali-data", str(cli_runs / "traj.npz"),
+            "--run-dir", str(tmp_path / "run"), *CALIB, *ACT]
+    monkeypatch.setattr(engine, "reconstruct_unit", spy)
+    crash = True  # in the 11th act reconstruction; one increment (8) made
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        cli.main(argv)
+    progress = json.loads((tmp_path / "run" / "calib_progress.json")
+                          .read_text())
+    assert progress == {"phase": "act", "unit_idx": 7, "n_inc": 1}
+    calls.clear()
+    crash = False
+    res = cli.main(argv)
+    assert calls == [u.name for u in _model(weight_bit=4,
+                                             split=True).units[8:]]
+    assert not (tmp_path / "run" / "calib_progress.json").exists()
+    assert _act_sites(load_qstate(res["path"]))
+
+
+def test_sim_sample_on_the_calibrated_act_qstate(cli_runs, tmp_path):
+    out = cli.main(["sample", "--task", "tiny", "--qstate",
+                    str(cli_runs / "wa" / "qstate.npz"), "--weight-bit", "4",
+                    "--quant-act", "--split", "--engine", "sim", "--n", "2",
+                    "--batch", "2", "--npz-out", str(tmp_path / "s.npz"),
+                    "--device", "cpu"])
+    assert out["nonfinite"] == 0 and _load(out["path"]).shape == (2, 8, 8, 3)
