@@ -28,7 +28,7 @@ every kernel of them against its plain PyTorch version:
   calib       - the AdaRound weight pass through the CLI: `make-cali-data
                 --n 32 --timesteps 100`, `calibrate --weight-bit 4 --split
                 --cali-st 8 --cali-n 16 --cali-batch-size 32 --cali-iters
-                100` over all 38 units (reference: 256 x 20 samples,
+                50` over all 38 units (reference: 256 x 20 samples,
                 20,000 iterations), `sample --engine fold --qstate <run
                 dir>/qstate.npz --n 64 --batch 64`; spies time each capture
                 and reconstruction, count B1 launches (none inside a
@@ -41,7 +41,7 @@ every kernel of them against its plain PyTorch version:
   calib_act   - the activation pass through the CLI on the calib phase's
                 qstate and trajectory: `calibrate --resume-w <qstate>
                 --quant-act --running-stat --weight-bit 4 --split
-                --cali-iters-a 100` (W4A8, all 38 units; reference 5,000
+                --cali-iters-a 50` (W4A8, all 38 units; reference 5,000
                 iterations); spies time the act init (64 rows, 51 B1
                 launches), the EMA sweep (2 batches of 64, 102), the FP
                 capture and each reconstruction (B1 0 launches inside),
@@ -99,6 +99,28 @@ every kernel of them against its plain PyTorch version:
   9. sd_sim   - W8A8: activation qstate from 2 inputs, one bf16 UNet call
                 at batch 8 and a 5-step PLMS through the CLI (f32), with
                 B2 launched with its softmax quantizer.
+  calib_sd    - the latent models' calibration through the CLI at full
+                SD width, shaped as the JAX package's flagship run:
+                `make-cali-data --task sd_v1 --token-ids --n 4` (PLMS-50,
+                CFG 7.5, f32; B2 10 and B1 per UNet call as the spy counts
+                them), `calibrate --weight-bit 4 --split --alpha-dtype
+                bfloat16 --cali-st 4 --cali-n 4 --cali-batch-size 4
+                --cali-iters 10` (40 rows, cond then uncond; all 80 units),
+                `calibrate --resume-w <it> --quant-act --sm-abit 16
+                --running-stat --act-init-batch 4 --cali-iters-a 10`, then
+                PLMS-5 samples at batch 1 of both qstates (fold; sim W4A8
+                with B2's 16-bit softmax quantizer), launch counts against
+                the spy; spies time every part (trajectory, captures, act
+                init, EMA, reconstructions by unit kind, snapshots), hold
+                B1/B2/B3 at 0 inside the reconstructions and B2/B3 at 0 in
+                the captures, act init and EMA, and each unit's block error
+                after its reconstruction to 1.02x its start's (nearest
+                rounding; init/EMA deltas where no trained delta is below
+                the lr), the sums lower; then the 16x16 transformer block
+                reconstructed on the card and on the CPU from the same
+                captures (both passes, 10 iterations), and B2's bucket-flip
+                share at (2, 4096, 8, 40) f32 with the 16-bit softmax
+                quantizer (at most 1e-3).
   The int8 and stream deployment engines (kernels B4, B5, B6):
   10. int_kernels - B4 (int8_conv, the implicit-GEMM convolution) at
                 every distinct site of one CIFAR W4A8 int8 step at batch 64
@@ -202,8 +224,8 @@ P_SHAPE = (2, 4096, 8, 40)  # P's (B, T, H, D), bench_flash_epilogue.py:112
 # calibrates on 256 samples x 20 steps with 20,000 iterations per unit;
 # the smoke cuts only those two: a 32-sample DDIM-100 trajectory, 16
 # samples at each of its 9 sampled steps (cali_st 8 slices every 12th of
-# 100 steps), 100 iterations per unit.
-CALIB_N, CALIB_ST, CALIB_CALI_N, CALIB_ITERS = 32, 8, 16, 100
+# 100 steps), 50 iterations per unit.
+CALIB_N, CALIB_ST, CALIB_CALI_N, CALIB_ITERS = 32, 8, 16, 50
 CALIB_BATCH = 32  # reconstruction minibatch (the reference's)
 RECON_BOUND = 1.02  # after <= 1.02 x before, tests/test_calibration.py:97
 CARD_CPU_UNIT = "up.3.block.0"  # a split up block (4x4, 512 -> 256)
@@ -211,9 +233,9 @@ CARD_CPU_ITERS = 50
 CARD_CPU_LOSS_REL = 1e-3  # per-iteration loss, card against CPU
 CARD_CPU_FLIPS = 1e-3  # share of hard roundings that may differ
 # calib_act: the activation pass on the calib phase's weight qstate and
-# trajectory (the same 144 samples), W4A8 split, running-stat EMA, 100
+# trajectory (the same 144 samples), W4A8 split, running-stat EMA, 50
 # iterations a unit (reference 5,000)
-ACT_ITERS = 100
+ACT_ITERS = 50
 ACT_INIT = 64  # act init rows and EMA batch (the reference's)
 ACT_RESUME_ITERS = 10  # the crash-and-resume run checks control flow only
 ACT_CRASH_AT = 13  # the resume run's spy raises in this reconstruction
@@ -222,6 +244,24 @@ FISHER_ROWS = 16  # calibration rows of the card-vs-CPU Fisher grads
 FISHER_REL = 1e-4  # of the largest |g|
 FISHER_ITERS = 20
 HELD = 8  # held inputs of the int8-vs-FP eps comparison
+# calib_sd: the latent models' calibration at full SD v1 width, shaped as
+# the JAX package's flagship run (scripts/run_sd_calibration.sh: W4A8,
+# --split, --sm-abit 16, --running-stat, bf16 alphas, batch 4) and cut in
+# scale only: a 4-image PLMS-50 trajectory, 4 samples at each of the 5
+# steps it slices (cali_st 4 takes every 12th of 50), cond and uncond: 40
+# rows; SDC_ITERS weight and SDC_ITERS_A act iterations a unit (reference
+# 20,000 and 5,000): the fewest tried at which every unit's quality
+# bound holds.
+SDC_N, SDC_ST, SDC_CALI_N = 4, 4, 4
+# minibatch, act init rows and EMA batch: one f32 score tensor of a
+# 4096-token self-attention is 2.1 GB at batch 4, and autograd keeps
+# several (at the CLI's default 32, 17 GB each)
+SDC_BATCH = 4
+SDC_ITERS = SDC_ITERS_A = 10
+SDC_SAMPLE_STEPS = 5  # PLMS-5 samples of both qstates, batch 1, decoded
+SDC_UNIT = "input_blocks.7.1.transformer_blocks.0"  # 16x16, 640 channels
+SDC_UNIT_ITERS = 10  # its reconstruction on the card and on the CPU
+SDC_FLIP_SHAPE = (2, 4096, 8, 40)  # B2 with the 16-bit softmax quantizer
 
 
 def _emit(obj: dict):
@@ -1105,7 +1145,8 @@ def _fisher_card_vs_cpu(task, work: Path, qpath: str, check: Checks) -> dict:
 
     def kl_spy(model, qstate, name, *a):
         if a[0].device.type == "cuda":
-            seen.setdefault(name, []).append(tuple(v.cpu() for v in a))
+            seen.setdefault(name, []).append(
+                tuple(None if v is None else v.cpu() for v in a))
         return real(model, qstate, name, *a)
 
     models = {}
@@ -1927,6 +1968,404 @@ def phase_sd_sim(task, work: Path, check: Checks) -> dict:
            "plms5_b2_sm_q_launches": cli_sm, "plms5_b3_launches": cli_b3}
     _emit(row)
     return row
+
+
+# -- Stable Diffusion v1 calibration: the latent models' path ---------------
+
+def _launch_counts() -> dict:
+    from qdiffusion_torch.ops.flash_attention import flash_attention
+    from qdiffusion_torch.ops.flash_streaming import \
+        streaming_flash_attention
+    from qdiffusion_torch.ops.groupnorm import fused_group_norm
+
+    return {"group_norm": fused_group_norm.launches,
+            "flash_attention": flash_attention.launches,
+            "flash_attention_sm_q": flash_attention.launches_sm_q,
+            "flash_streaming": streaming_flash_attention.launches}
+
+
+class _Parts:
+    """Seconds, calls and kernel launches of the parts of a run, each
+    call timed between two synchronisations."""
+
+    def __init__(self):
+        self.parts: dict = {}
+
+    def __call__(self, key, fn, *a, **kw):
+        torch.cuda.synchronize()
+        c0, t0 = _launch_counts(), time.perf_counter()
+        res = fn(*a, **kw)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = {k: v - c0[k] for k, v in _launch_counts().items()}
+        p = self.parts.setdefault(key, {"seconds": 0.0, "calls": 0,
+                                        **{k: 0 for k in got}})
+        p["seconds"] += sec
+        p["calls"] += 1
+        for k, v in got.items():
+            p[k] += v
+        return res, sec, got
+
+
+def _sd_calib_argv(work: Path, run: str, *extra) -> list:
+    return ["calibrate", "--task", "sd_v1", "--ckpt", str(work / "unet.npz"),
+            "--cali-data", str(work / "calib_sd" / "traj.npz"),
+            "--weight-bit", "4", "--split", "--alpha-dtype", "bfloat16",
+            "--cali-st", str(SDC_ST), "--cali-n", str(SDC_CALI_N),
+            "--cali-batch-size", str(SDC_BATCH), "--act-init-batch",
+            str(SDC_BATCH), "--run-dir", str(work / "calib_sd" / run),
+            "--device", "cuda", *extra]
+
+
+def _sd_sample_argv(work: Path, qstate: str, out: str, *extra) -> list:
+    return ["sample", "--task", "sd_v1", "--ckpt", str(work / "unet.npz"),
+            "--vae-ckpt", str(work / "vae.npz"),
+            "--clip-ckpt", str(work / "clip.npz"),
+            "--token-ids", str(work / "token_ids.npz"), "--qstate", qstate,
+            "--weight-bit", "4", "--split", "--n", "1", "--batch", "1",
+            "--timesteps", str(SDC_SAMPLE_STEPS), "--npz-out",
+            str(work / "calib_sd" / out), "--device", "cuda", *extra]
+
+
+def phase_calib_sd(task, work: Path, spy: dict, smi: str,
+                   check: Checks) -> dict:
+    """The latent models' calibration at full SD v1 width through the CLI,
+    shaped as the JAX package's flagship run (W4A8, --split, --sm-abit 16,
+    --running-stat, bf16 alphas, batch 4): make-cali-data --token-ids
+    (PLMS-50, CFG 7.5, f32), calibrate (the weight pass over every unit),
+    calibrate --resume-w --quant-act (the act pass), then PLMS-5 samples
+    of both qstates (fold, and sim W4A8 with B2's 16-bit softmax
+    quantizer). Spies time every part and count B1/B2/B3 launches in each;
+    every unit's block error is held before and after its
+    reconstruction. Then SDC_UNIT reconstructed on the card and on the
+    CPU from the same captures, and B2's bucket-flip share at a 16-bit
+    softmax quantizer."""
+    from qdiffusion_torch import cli
+    from qdiffusion_torch.calib import capture, engine, recon
+    from qdiffusion_torch.utils import checkpoints
+
+    work_c = work / "calib_sd"
+    traj = work_c / "traj.npz"
+    calls = SD_STEPS + 1
+    unet, dec = spy["unet_call"], spy["decode"]
+    parts = _Parts()
+    c0 = _launch_counts()
+    made = parts("trajectory", cli.main, [
+        "make-cali-data", "--task", "sd_v1", "--ckpt", str(work / "unet.npz"),
+        "--clip-ckpt", str(work / "clip.npz"), "--token-ids",
+        str(work / "token_ids.npz"), "--n", str(SDC_N), "--out", str(traj),
+        "--device", "cuda"])[0]
+    traj_launches = parts.parts["trajectory"]
+    want_traj = {"group_norm": calls * unet["group_norm"],
+                 "flash_attention": calls * unet["flash_attention"],
+                 "flash_streaming": 0}
+    check(made["shapes"] == {"xs": (SD_STEPS, SDC_N, 64, 64, 4),
+                             "ts": (SD_STEPS, SDC_N),
+                             "cs": (SD_STEPS, SDC_N, 77, 768),
+                             "ucs": (SD_STEPS, SDC_N, 77, 768)},
+          f"calib_sd trajectory {made['shapes']}")
+    check({k: traj_launches[k] for k in want_traj} == want_traj,
+          f"calib_sd make-cali-data launches {traj_launches}, expected "
+          f"{want_traj} ({calls} UNet calls)")
+
+    units = {"weight": [], "act": []}
+    kept: dict = {}
+    real = (engine.reconstruct_unit, capture.GroupedCapture.fp_capture,
+            capture.GroupedCapture.quant_capture, engine.init_act_qstate,
+            engine.run_running_stat, checkpoints.CalibCheckpointer.save)
+
+    def recon_spy(model, qstate, unit, inps, target, cfg, **kw):
+        act = kw.get("act_quant", False)
+        small = recon.deltas_below_lr(qstate, unit, cfg.lr,
+                                      kw.get("sm_abit", 8)) if act else []
+        start = qstate if act else _nearest(qstate, unit)
+        before = parts("block_error", _block_mse, unit, start, inps, target,
+                       SDC_BATCH, act)[0]
+        if unit.name == SDC_UNIT:
+            kept["act" if act else "weight"] = dict(
+                inps=tuple(a.cpu() for a in inps), out=target.cpu(),
+                qstate=_to({s: qstate[s] for s in recon._sites(unit)
+                            if s in qstate}, "cpu"))
+        new, sec, got = parts(f"recon_{unit.kind}", real[0], model, qstate,
+                              unit, inps, target, cfg, **kw)
+        after = parts("block_error", _block_mse, unit, new, inps, target,
+                      SDC_BATCH, act)[0]
+        units["act" if act else "weight"].append({
+            "unit": unit.name, "kind": unit.kind, "recon_s": sec,
+            "ms_per_iter": sec / cfg.iters * 1e3, "launches": got,
+            "mse_before": before, "mse_after": after,
+            "ratio": after / before,
+            "deltas_below_lr": [f"{s}/{k}" for s, k in small]})
+        return new
+
+    def fp_spy(self, *a, **kw):
+        return parts("fp_capture", real[1], self, *a, **kw)[0]
+
+    def q_spy(self, *a, **kw):
+        return parts("asym_capture", real[2], self, *a, **kw)[0]
+
+    def init_spy(*a, **kw):
+        return parts("act_init", real[3], *a, **kw)[0]
+
+    def ema_spy(*a, **kw):
+        return parts("ema_sweep", real[4], *a, **kw)[0]
+
+    def save_spy(self, *a, **kw):
+        return parts("snapshots", real[5], self, *a, **kw)[0]
+
+    (engine.reconstruct_unit, capture.GroupedCapture.fp_capture,
+     capture.GroupedCapture.quant_capture, engine.init_act_qstate,
+     engine.run_running_stat, checkpoints.CalibCheckpointer.save) = (
+        recon_spy, fp_spy, q_spy, init_spy, ema_spy, save_spy)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        cal_w = parts("calibrate_weight", cli.main, _sd_calib_argv(
+            work, "run_w", "--cali-iters", str(SDC_ITERS)))[0]
+        peak_w = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        cal_a = parts("calibrate_act", cli.main, _sd_calib_argv(
+            work, "run_a", "--resume-w", cal_w["path"], "--quant-act",
+            "--act-bit", "8", "--sm-abit", "16", "--running-stat",
+            "--cali-iters-a", str(SDC_ITERS_A)))[0]
+        peak_a = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        (engine.reconstruct_unit, capture.GroupedCapture.fp_capture,
+         capture.GroupedCapture.quant_capture, engine.init_act_qstate,
+         engine.run_running_stat, checkpoints.CalibCheckpointer.save) = real
+    torch.cuda.empty_cache()
+
+    # the reference's unit list, and the CPU side of the card-vs-CPU check
+    cpu_m = _sd_model(task, work, "cpu")
+    names = [u.name for u in cpu_m.units]
+    n_weight = sum(1 for u in cpu_m.units if u.layer_names)
+    for what, want in (("weight", [u.name for u in cpu_m.units
+                                   if u.layer_names]), ("act", names)):
+        check([r["unit"] for r in units[what]] == want,
+              f"calib_sd {what} pass reconstructed {len(units[what])} of "
+              f"{len(want)} units")
+    zero = {"group_norm": 0, "flash_attention": 0, "flash_streaming": 0}
+    for what, rows in units.items():
+        inside = [r["unit"] for r in rows
+                  if any(r["launches"][k] for k in zero)]
+        check(not inside, f"calib_sd {what} pass: B1/B2/B3 launched inside "
+                          f"the reconstructions of {inside[:4]}")
+    for key in ("fp_capture", "asym_capture", "act_init", "ema_sweep"):
+        p = parts.parts.get(key, {})
+        check(p.get("calls", 0) > 0 and p["group_norm"] > 0,
+              f"calib_sd {key}: {p.get('calls', 0)} calls, B1 "
+              f"{p.get('group_norm')} launches")
+        check(p.get("flash_attention", 1) == 0
+              and p.get("flash_streaming", 1) == 0,
+              f"calib_sd {key}: B2/B3 launched {p.get('flash_attention')} / "
+              f"{p.get('flash_streaming')} times (they materialize)")
+    quality = {}
+    for what, rows in units.items():
+        held = [r for r in rows if not r["deltas_below_lr"]]
+        for r in held:
+            check(r["ratio"] <= RECON_BOUND,
+                  f"calib_sd {what} {r['unit']}: block error {r['ratio']} x "
+                  f"the start's, bound {RECON_BOUND}")
+        before = sum(r["mse_before"] for r in held)
+        after = sum(r["mse_after"] for r in held)
+        check(after < before, f"calib_sd {what} pass: sum of block errors "
+                              f"{after} not below {before}")
+        exempt = {r["unit"]: {"ratio": r["ratio"],
+                              "deltas": r["deltas_below_lr"]}
+                  for r in rows if r["deltas_below_lr"]}
+        print(f"calib_sd {what} pass: exempt units (a trained delta below "
+              f"the lr): {exempt or 'none'}", flush=True)
+        quality[what] = {"units": len(rows), "held": len(held),
+                         "mse_before_sum": before, "mse_after_sum": after,
+                         "worst_ratio": max((r["ratio"] for r in held),
+                                            default=None),
+                         "below_lr_units": exempt}
+
+    samples = {}
+    for key, qpath, extra, sm in (
+            ("fold", cal_w["path"], ("--engine", "fold"), 0),
+            ("sim_w4a8", cal_a["path"], ("--engine", "sim", "--quant-act",
+                                         "--act-bit", "8", "--sm-abit",
+                                         "16"), 1)):
+        res = parts(f"sample_{key}", cli.main, _sd_sample_argv(
+            work, qpath, f"{key}.npz", *extra))[0]
+        got = parts.parts[f"sample_{key}"]
+        n_calls = SDC_SAMPLE_STEPS + 1
+        want = {"group_norm": n_calls * unet["group_norm"]
+                + dec["group_norm"],
+                "flash_attention": n_calls * unet["flash_attention"],
+                "flash_attention_sm_q": sm * n_calls
+                * unet["flash_attention"],
+                "flash_streaming": dec["flash_streaming"]}
+        with np.load(res["path"]) as f:
+            imgs = f["arr_0"]
+        check(imgs.shape == (1, 512, 512, 3) and res["nonfinite"] == 0
+              and res["model_calls"] == [n_calls],
+              f"calib_sd {key} sample {imgs.shape}, {res['nonfinite']} "
+              f"non-finite, calls {res['model_calls']}")
+        check({k: got[k] for k in want} == want,
+              f"calib_sd {key} sample launches {got}, expected {want}")
+        samples[key] = {"seconds": res["batch_seconds"],
+                        "decode_seconds": res["decode_seconds"],
+                        "launches": {k: got[k] for k in want},
+                        "image_mean": float(imgs.mean()),
+                        "image_std": float(imgs.std())}
+    path = {k: v - c0[k] - parts.parts["block_error"][k]
+            for k, v in _launch_counts().items()}
+    card_cpu = _sd_unit_card_vs_cpu(task, work, cpu_m, kept, check)
+    del cpu_m
+    flips = _sm16_flip_share(check)
+
+    kinds = {}
+    for what, rows in units.items():
+        for r in rows:
+            kinds.setdefault(f"{what}/{r['kind']}", []).append(
+                r["ms_per_iter"])
+    p = parts.parts
+    row = {"phase": "calib_sd", "nvidia_smi": smi,
+           "reduced": {"trajectory": f"{SDC_N} images, PLMS-{SD_STEPS} "
+                       "(reference: the prompts of a calibration set)",
+                       "calibration samples": f"{SDC_CALI_N} x "
+                       f"{len(range(0, SD_STEPS, SD_STEPS // SDC_ST))} "
+                       "steps, cond and uncond (reference 256 x 20 x 2)",
+                       "iterations per unit": f"{SDC_ITERS} weight, "
+                       f"{SDC_ITERS_A} act (reference 20000, 5000)",
+                       "samples": f"PLMS-{SDC_SAMPLE_STEPS}, batch 1"},
+           "samples_rows": cal_w["samples"], "units": len(names),
+           "weight_units": n_weight,
+           "seconds": {k: v["seconds"] for k, v in p.items()},
+           "calls": {k: v["calls"] for k, v in p.items()},
+           "launches": {k: {n: v[n] for n in zero} for k, v in p.items()},
+           "peak_device_gb": {"weight": peak_w, "act": peak_a},
+           "ms_per_iter_by_kind": {k: {"median": float(np.median(v)),
+                                       "max": max(v), "units": len(v)}
+                                   for k, v in kinds.items()},
+           "quality": quality, "samples": samples,
+           "path_launches": path, "card_vs_cpu": card_cpu,
+           "sm16_bucket_flip_share": flips}
+    _emit(row)
+    for what, rows in units.items():
+        for r in rows:
+            _emit({"phase": f"calib_sd_{what}_unit", **r})
+    return row
+
+
+def _sd_model(task, work: Path, dev: str):
+    """The SD UNet of the calibrate CLI (split shortcut, W4A8 policy with
+    the 16-bit softmax, act-quant partition) with the seeded weights."""
+    import dataclasses
+
+    from qdiffusion_torch.cli import load_fp_params
+    from qdiffusion_torch.config import QuantFlags
+    from qdiffusion_torch.models.unet_ldm import LDMUNet
+
+    flags = QuantFlags(weight_bit=4, quant_act=True, act_bit=8, sm_abit=16,
+                       split=True)
+    model = LDMUNet(dataclasses.replace(task.unet_ldm, split_shortcut=True),
+                    flags.policy_ldm(), act_quant_partition=True, device=dev)
+    model.load_state_dict(load_fp_params(work / "unet.npz", model))
+    return model
+
+
+def _sd_unit_card_vs_cpu(task, work: Path, cpu_m, kept: dict,
+                         check: Checks) -> dict:
+    """SDC_UNIT's weight and act reconstructions (SDC_UNIT_ITERS
+    iterations) on the card and on the CPU from the captures and qstate
+    the calibration gave it, with one set of minibatch indices: alphas
+    (stored in f32 here, so no storage rounding enters) within 3.7e-6 of
+    the largest |alpha| or four times the card's own spread under 2e-6
+    relative input noise, whichever is larger, at most CARD_CPU_FLIPS of
+    the hard roundings flipped; act deltas within 1e-4 relative or four
+    times that spread (tests/test_torch_calib_ldm.py's bounds)."""
+    from qdiffusion_torch.calib import recon
+
+    check(set(kept) == {"weight", "act"},
+          f"calib_sd: {SDC_UNIT} captures kept for {sorted(kept)}")
+    if set(kept) != {"weight", "act"}:
+        return {}
+    card_m = _sd_model(task, work, "cuda")
+    out = {"unit": SDC_UNIT, "iters": SDC_UNIT_ITERS}
+    real_idx = recon._batch_indices
+    try:
+        for what, act in (("weight", False), ("act", True)):
+            k = kept[what]
+            n = k["out"].shape[0]
+            idx = torch.randint(0, n, (SDC_UNIT_ITERS, SDC_BATCH),
+                                generator=torch.Generator().manual_seed(1))
+            recon._batch_indices = lambda i, n_, bs, gen: idx[i]
+            cfg = recon.ReconConfig(iters=SDC_UNIT_ITERS,
+                                    batch_size=SDC_BATCH, p=2.4 if act
+                                    else 2.0)
+            mode = "act" if act else "weight"
+
+            def run(model, dev, seed=0):
+                noise = [1.0 if seed == 0 else 1.0 + 2e-6 * torch.randn(
+                    a.shape, generator=torch.Generator().manual_seed(seed))
+                    for a in k["inps"]]
+                unit = next(u for u in model.units if u.name == SDC_UNIT)
+                t0 = time.perf_counter()
+                new = recon.reconstruct_unit(
+                    model, _to(k["qstate"], dev), unit,
+                    tuple((a * z).to(dev) for a, z in zip(k["inps"], noise)),
+                    k["out"].to(dev), cfg, act_quant=act, sm_abit=16)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                return ({(s, sl): v.float().cpu() for s, sls in
+                         recon.extract_trainable(new, unit, mode, 16).items()
+                         for sl, v in sls.items()},
+                        time.perf_counter() - t0)
+
+            got, card_s = run(card_m, "cuda")
+            spread = [run(card_m, "cuda", seed)[0] for seed in (1, 2, 3, 4)]
+            want, cpu_s = run(cpu_m, "cpu")
+            worst, bound_used, flips, total = 0.0, 0.0, 0, 0
+            for key, w in want.items():
+                if act:
+                    rel = lambda a: float(((a - w).abs() / w.abs()).max())
+                    floor = 1e-4
+                else:
+                    top = float(w.abs().max())
+                    rel = lambda a: float((a - w).abs().max()) / top
+                    floor = 3.7e-6
+                    flips += int(((got[key] >= 0) != (w >= 0)).sum())
+                    total += w.numel()
+                err = rel(got[key])
+                bound = max(floor, 4.0 * max(rel(r[key]) for r in spread))
+                check(err <= bound, f"calib_sd {SDC_UNIT} {what} card vs "
+                                    f"CPU: {key} {err}, bound {bound}")
+                worst, bound_used = max(worst, err), max(bound_used, bound)
+            if not act:
+                check(flips <= CARD_CPU_FLIPS * total,
+                      f"calib_sd {SDC_UNIT} weight card vs CPU: {flips} of "
+                      f"{total} hard roundings differ")
+            out[what] = {"leaves": len(want), "worst_rel": worst,
+                         "largest_bound": bound_used, "flips": flips,
+                         "weights": total, "card_s": card_s, "cpu_s": cpu_s}
+    finally:
+        recon._batch_indices = real_idx
+    del card_m
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sm16_flip_share(check: Checks) -> dict:
+    """B2 at SDC_FLIP_SHAPE, f32, with the 16-bit softmax quantizer of
+    the sim W4A8 sample (always_zero, delta 1/65535): the share of
+    quantized probabilities that differ from the plain version's."""
+    from qdiffusion_torch.models.unet_ldm import LDMQuantPolicy
+    from qdiffusion_torch.ops.flash_attention import bucket_flip_share, \
+        flash_attention, flash_attention_plain
+
+    (q, k, _), _, _ = _attn_case(SDC_FLIP_SHAPE, torch.float32, False, 9)
+    spec = LDMQuantPolicy(sm_abit=16).sm_aq_transformer
+    f = lambda a: torch.tensor(a, device="cuda")
+    sm_q = ({"delta": f(1.0 / 65535), "zero_point": f(0.0)}, spec)
+    t0 = time.perf_counter()
+    share = bucket_flip_share(flash_attention, flash_attention_plain, q, k,
+                              scale=SDC_FLIP_SHAPE[-1] ** -0.5, sm_q=sm_q)
+    check(share <= 1e-3, f"B2 {SDC_FLIP_SHAPE} f32 with a 16-bit softmax "
+                         f"quantizer: bucket-flip share {share} (limit 1e-3)")
+    return {"shape": list(SDC_FLIP_SHAPE), "dtype": "float32", "sm_bits": 16,
+            "share": share, "seconds": time.perf_counter() - t0}
 
 
 def phase_sd_profile(task, work: Path, out: Path) -> dict:
@@ -2796,6 +3235,10 @@ def main(argv=None) -> int:
     sd_fold = phase_sd_fold_cli(sd, work, spy, check)
     sd_cpu = phase_sd_card_vs_cpu(sd, work, check)
     sd_sim = phase_sd_sim(sd, work, check)
+    # slice 10's path: the latent models' calibration
+    torch.cuda.empty_cache()
+    calib_sd = phase_calib_sd(sd, work, spy, smi, check)
+    torch.cuda.empty_cache()
     sd_prof = phase_sd_profile(sd, work, out) if args.profile else None
     sd_launches = sd_fold["launches"]
     for name, n in sd_launches.items():
@@ -2841,6 +3284,7 @@ def main(argv=None) -> int:
              "cifar10_int8": int8_cli["launches"]["group_norm"],
              "cifar10_calib": calib["b1_launches"]["path"],
              "cifar10_calib_act": calib_act["b1_launches"]["path"],
+             "sd_v1_calib": calib_sd["path_launches"]["group_norm"],
              "sd_v1_stream_w4": sd_stream[4]["launches"]["group_norm"],
              "sd_v1_stream_w8": sd_stream[8]["launches"]["group_norm"]},
          "cifar10_step_ms": per_call_sum(rows, "ms"),
@@ -2911,6 +3355,7 @@ def main(argv=None) -> int:
                      (kernels[2], "flash_streaming")):
         row["launches_by_path"] = {
             "sd_v1_fold": sd_launches[key],
+            "sd_v1_calib": calib_sd["path_launches"][key],
             "sd_v1_stream_w4": sd_stream[4]["launches"][key],
             "sd_v1_stream_w8": sd_stream[8]["launches"][key]}
     report = {"device": device, "nvidia_smi": smi, "build": built,
@@ -2922,6 +3367,7 @@ def main(argv=None) -> int:
                   k: v for k, v in spy.items() if not k.endswith("shapes")},
               "sd_files": files, "sd_fold": sd_fold,
               "sd_card_vs_cpu": sd_cpu, "sd_sim": sd_sim,
+              "calib_sd": calib_sd,
               "sd_profile": sd_prof, "int8_spy": i8_row,
               "sd_stream_spy": {w: {k: v for k, v in r.items()
                                     if k != "shapes"} for w, r in st.items()},

@@ -18,6 +18,8 @@ precision.
 
 The sweep loops over whole batches on the host; a tail batch that does
 not fill `batch_size` is dropped with a warning, as in the JAX package.
+A conditional model's forward takes its batch of the contexts `cs`
+(B, L, D) too, and a transformer unit's captured inputs hold them.
 Its jit-only parts have no eager counterpart and are not ported: the AOT
 lowering of the sweeps (`lower_sweeps`) and the shape-shared programs
 that exist to cut XLA compiles.
@@ -26,7 +28,7 @@ that exist to cut XLA compiles.
 from __future__ import annotations
 
 import logging
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -61,12 +63,17 @@ class _TruncatingCtx(QuantCtx):
             raise _StopForward
 
 
+def _model_call(model, x, t, ctx, c=None):
+    """The model's forward, with the context c of a conditional model."""
+    return model(x, t, ctx) if c is None else model(x, t, ctx, c)
+
+
 def _forward(model, qstate, mode: QuantMode, names: Tuple[str, ...], x,
-             t) -> Dict[str, tuple]:
+             t, c=None) -> Dict[str, tuple]:
     """One truncated forward: {name: (inputs tuple, output)}."""
     ctx = _TruncatingCtx(qstate, mode=mode, capture=frozenset(names))
     try:
-        model(x, t, ctx)
+        _model_call(model, x, t, ctx, c)
     except _StopForward:
         pass
     out = {}
@@ -87,14 +94,15 @@ def _alloc(a: torch.Tensor, n: int) -> torch.Tensor:
 
 @torch.no_grad()
 def _sweep(model, qstate, mode: QuantMode, names: Tuple[str, ...], xs, ts,
-           batch_size: int, want_out: bool) -> Dict[str, tuple]:
+           cs, batch_size: int, want_out: bool) -> Dict[str, tuple]:
     """Capture `names` over the calibration set, whole batches only:
     {name: (inputs tuple, output or None)}, each stacked over samples
     into one preallocated buffer."""
     res: Dict[str, tuple] = {}
     for i in _batch_starts(xs.shape[0], batch_size):
         j = i + batch_size
-        got = _forward(model, qstate, mode, names, xs[i:j], ts[i:j])
+        got = _forward(model, qstate, mode, names, xs[i:j], ts[i:j],
+                       None if cs is None else cs[i:j])
         if not res:
             n = len(_batch_starts(xs.shape[0], batch_size)) * batch_size
             res = {nm: (tuple(_alloc(a, n) for a in inp),
@@ -110,19 +118,21 @@ def _sweep(model, qstate, mode: QuantMode, names: Tuple[str, ...], xs, ts,
 
 
 def capture_unit_io(model, qstate: dict, unit_name: str,
-                    cali_xs: torch.Tensor, cali_ts: torch.Tensor, *,
+                    cali_xs: torch.Tensor, cali_ts: torch.Tensor,
+                    cali_cs: Optional[torch.Tensor] = None, *,
                     asym: bool = False, batch_size: int = 8):
     """(inputs, output) of `unit_name` over the calibration set: inputs a
-    tuple of stacked tensors (e.g. (x, temb)), the output stacked. With
-    asym the inputs come from the weight-quantized prefix (hard
-    rounding). The JAX function's act_quant prefix serves only its
-    ungrouped engine path, which the port does not have; the latent
-    models' context input is ROADMAP A4c."""
+    tuple of stacked tensors (e.g. (x, temb), or a transformer block's
+    (tokens, context)), the output stacked. cali_cs: the contexts of a
+    conditional model, row for row. With asym the inputs come from the
+    weight-quantized prefix (hard rounding). The JAX function's act_quant
+    prefix serves only its ungrouped engine path, which the port does not
+    have."""
     names = (unit_name,)
-    inps, out = _sweep(model, qstate, FP, names, cali_xs, cali_ts,
+    inps, out = _sweep(model, qstate, FP, names, cali_xs, cali_ts, cali_cs,
                        batch_size, want_out=True)[unit_name]
     if asym:
-        inps = _sweep(model, qstate, WQ, names, cali_xs, cali_ts,
+        inps = _sweep(model, qstate, WQ, names, cali_xs, cali_ts, cali_cs,
                       batch_size, want_out=False)[unit_name][0]
     return inps, out
 
@@ -144,23 +154,23 @@ class GroupedCapture:
         self.batch_size = batch_size
         self.group_bytes = group_bytes
 
-    def unit_bytes(self, unit_names: Sequence[str], xs,
-                   ts) -> Dict[str, int]:
+    def unit_bytes(self, unit_names: Sequence[str], xs, ts,
+                   cs=None) -> Dict[str, int]:
         """Bytes of each unit's full-set FP capture (inputs and output),
         from one FP forward of one sample."""
         n = len(_batch_starts(xs.shape[0], self.batch_size)) \
             * self.batch_size
         with torch.no_grad():
             got = _forward(self.model, {}, FP, tuple(unit_names), xs[:1],
-                           ts[:1])
+                           ts[:1], None if cs is None else cs[:1])
         return {nm: n * sum(a.numel() * a.element_size()
                             for a in (*inp, out))
                 for nm, (inp, out) in got.items()}
 
-    def plan(self, unit_names: Sequence[str], xs,
-             ts) -> List[Tuple[str, ...]]:
+    def plan(self, unit_names: Sequence[str], xs, ts,
+             cs=None) -> List[Tuple[str, ...]]:
         """Greedy consecutive grouping by estimated full-set bytes."""
-        sizes = self.unit_bytes(unit_names, xs, ts)
+        sizes = self.unit_bytes(unit_names, xs, ts, cs)
         groups: List[Tuple[str, ...]] = []
         cur: List[str] = []
         cur_bytes = 0
@@ -176,16 +186,16 @@ class GroupedCapture:
                     len(unit_names), len(groups))
         return groups
 
-    def fp_capture(self, group: Tuple[str, ...], xs,
-                   ts) -> Dict[str, tuple]:
+    def fp_capture(self, group: Tuple[str, ...], xs, ts,
+                   cs=None) -> Dict[str, tuple]:
         """One sweep capturing FP (inputs, output) for every unit of
         `group` over the whole calibration set."""
-        return _sweep(self.model, {}, FP, tuple(group), xs, ts,
+        return _sweep(self.model, {}, FP, tuple(group), xs, ts, cs,
                       self.batch_size, want_out=True)
 
-    def quant_capture(self, qstate: dict, name: str, xs,
-                      ts) -> Tuple[torch.Tensor, ...]:
+    def quant_capture(self, qstate: dict, name: str, xs, ts,
+                      cs=None) -> Tuple[torch.Tensor, ...]:
         """`name`'s inputs with the weight-quantized prefix of `qstate`
         (hard rounding), truncated at the unit."""
-        return _sweep(self.model, qstate, WQ, (name,), xs, ts,
+        return _sweep(self.model, qstate, WQ, (name,), xs, ts, cs,
                       self.batch_size, want_out=False)[name][0]

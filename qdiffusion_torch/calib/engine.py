@@ -21,8 +21,11 @@ a full base snapshot before its unit loop, an increment every
 ckpt_every units, and the final qstate.npz; a run whose directory holds
 a marker resumes after the unit it names. The result is one qstate in
 the torch layout. The JAX config's `precompile` and `pipeline` fields
-schedule XLA compiles and have no eager counterpart. Conditional (latent
-model) calibration data is ROADMAP A4c.
+schedule XLA compiles and have no eager counterpart.
+
+Conditional models (SD) calibrate on (xs, ts, cs): every forward of the
+act init, the EMA sweep, the captures and the Fisher grads takes the
+rows' contexts cs beside them (JAX engine.py:125-166).
 """
 
 from __future__ import annotations
@@ -34,10 +37,11 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from qdiffusion_torch.calib.capture import GroupedCapture
+from qdiffusion_torch.calib.capture import GroupedCapture, _model_call
 from qdiffusion_torch.calib.fisher import save_grad_data
 from qdiffusion_torch.calib.recon import (
     ReconConfig,
+    _sites,
     init_adaround_unit,
     reconstruct_unit,
 )
@@ -106,24 +110,24 @@ def init_act_qstate(model, qstate: dict, xs: torch.Tensor,
     sample_diffusion_ddim.py:203-208). xs: NHWC; cs: the cross-attention
     context of a model that takes one. Returns a new qstate."""
     ctx = QuantCtx(qstate, mode=WA, collect=INIT)
-    if cs is None:
-        model(xs, ts, ctx)
-    else:
-        model(xs, ts, ctx, cs)
+    _model_call(model, xs, ts, ctx, cs)
     return _merge_collected(qstate, ctx.collected)
 
 
 @torch.no_grad()
 def run_running_stat(model, qstate: dict, xs: torch.Tensor,
-                     ts: torch.Tensor, *, batch: int = 64,
-                     sm_only: bool = False) -> dict:
+                     ts: torch.Tensor, cs: torch.Tensor = None, *,
+                     batch: int = 64, sm_only: bool = False) -> dict:
     """EMA sweep over the calibration set in whole batches, each batch's
     forward reading the stats the batch before left (reference
-    set_running_stat, quant_model.py:71-87; JAX engine.py:149-170)."""
+    set_running_stat, quant_model.py:71-87; JAX engine.py:149-170); cs:
+    the contexts, sliced with the batch."""
     collect = EMA_SM_ONLY if sm_only else EMA
     for i in range(0, xs.shape[0] - batch + 1, batch):
+        j = i + batch
         ctx = QuantCtx(qstate, mode=WA, collect=collect)
-        model(xs[i:i + batch], ts[i:i + batch], ctx)
+        _model_call(model, xs[i:j], ts[i:j], ctx,
+                    None if cs is None else cs[i:j])
         qstate = _merge_collected(qstate, ctx.collected)
     return qstate
 
@@ -161,8 +165,10 @@ class _Snapshots:
                         phase, time.perf_counter() - t0)
 
     def unit_done(self, qstate: dict, phase: str, k: int, unit):
-        self.pending.update(unit.layer_names)
-        self.pending.add(unit.name)
+        # every site the unit trains: its layers, its own and its extra
+        # act sites (a transformer block's attn1 / attn2 deltas; the JAX
+        # engine leaves those out of its increments)
+        self.pending.update(_sites(unit))
         self.last = (phase, k)
         if self.ckpt is not None and (k + 1) % self.every == 0:
             self._save(qstate)
@@ -186,17 +192,15 @@ def calibrate(model, cali_data: Sequence[torch.Tensor],
               skip_weight_pass: bool = False) -> dict:
     """The weight pass over every unit of `model`, then with
     cfg.quant_act the activation pass; returns the calibrated qstate.
-    cali_data: (xs NHWC, ts) on the model's device
-    (calib/samples.py::get_train_samples). generator draws the act init
+    cali_data: (xs NHWC, ts), or (xs, ts, cs) for a conditional model, on
+    the model's device (calib/samples.py::get_train_samples). generator draws the act init
     rows and every unit's minibatches in turn (default: seed 0 on the
     data's device). qstate: the state to start from (default:
     init_weight_qstate). checkpointer: snapshots, and a resume from the
     marker it finds. skip_weight_pass: only the activation pass, on
     `qstate`'s reconstructed weights (reference --resume_w)."""
-    if len(cali_data) > 2:
-        raise NotImplementedError(
-            "conditional calibration data (latent models) is ROADMAP A4c")
-    xs, ts = cali_data
+    xs, ts = cali_data[:2]
+    cs = cali_data[2] if len(cali_data) > 2 else None
     if generator is None:
         generator = torch.Generator(device=xs.device).manual_seed(0)
     start_phase, start_idx = "weight", 0
@@ -236,10 +240,10 @@ def calibrate(model, cali_data: Sequence[torch.Tensor],
                                         alpha_dtype=cfg.alpha_dtype)
         if checkpointer is not None and not checkpointer.has_base:
             snaps.base(qstate, "weight", start_idx - 1)
-        for group in gc.plan(names, xs, ts) if names else []:
+        for group in gc.plan(names, xs, ts, cs) if names else []:
             if not todo(group, start_idx):
                 continue
-            fp = gc.fp_capture(group, xs, ts)
+            fp = gc.fp_capture(group, xs, ts, cs)
             if cfg.asym:
                 # asym reconstruction reads only the FP output; the inputs
                 # come from the quantized-prefix sweep, so drop the FP
@@ -252,11 +256,11 @@ def calibrate(model, cali_data: Sequence[torch.Tensor],
                     continue
                 t0 = time.perf_counter()
                 if cfg.asym:
-                    inps = gc.quant_capture(qstate, name, xs, ts)
+                    inps = gc.quant_capture(qstate, name, xs, ts, cs)
                 _sync(out)
                 t_cap = time.perf_counter() - t0
                 grads = None if cfg.weight.opt_mode == "mse" else \
-                    save_grad_data(model, qstate, name, xs, ts,
+                    save_grad_data(model, qstate, name, xs, ts, cs,
                                    batch_size=cfg.capture_batch)
                 qstate = reconstruct_unit(model, qstate, unit, inps, out,
                                           cfg.weight, sm_abit=cfg.sm_abit,
@@ -283,11 +287,12 @@ def calibrate(model, cali_data: Sequence[torch.Tensor],
         t0 = time.perf_counter()
         n_init = min(cfg.act_init_batch, xs.shape[0])
         idx = _act_init_indices(xs.shape[0], n_init, generator)
-        qstate = init_act_qstate(model, qstate, xs[idx], ts[idx])
+        qstate = init_act_qstate(model, qstate, xs[idx], ts[idx],
+                                 None if cs is None else cs[idx])
         logger.info("activation quantizer scales initialized (%d rows)",
                     n_init)
         if cfg.running_stat:
-            qstate = run_running_stat(model, qstate, xs, ts,
+            qstate = run_running_stat(model, qstate, xs, ts, cs,
                                       batch=cfg.act_init_batch,
                                       sm_only=cfg.rs_sm_only)
             logger.info("running-stat EMA sweep done")
@@ -300,10 +305,10 @@ def calibrate(model, cali_data: Sequence[torch.Tensor],
         snaps.base(qstate, "act", -1)
 
     names = [u.name for u in units if u.name not in cfg.skip_units]
-    for group in gc.plan(names, xs, ts) if names else []:
+    for group in gc.plan(names, xs, ts, cs) if names else []:
         if not todo(group, start_idx):
             continue
-        fp = gc.fp_capture(group, xs, ts)
+        fp = gc.fp_capture(group, xs, ts, cs)
         for name in group:
             k, unit = by_name[name]
             inps, out = fp.pop(name)
@@ -311,8 +316,8 @@ def calibrate(model, cali_data: Sequence[torch.Tensor],
                 continue
             t0 = time.perf_counter()
             grads = None if cfg.act.opt_mode == "mse" else \
-                save_grad_data(model, qstate, name, xs, ts, act_quant=True,
-                               batch_size=cfg.capture_batch)
+                save_grad_data(model, qstate, name, xs, ts, cs,
+                               act_quant=True, batch_size=cfg.capture_batch)
             qstate = reconstruct_unit(model, qstate, unit, inps, out,
                                       cfg.act, act_quant=True,
                                       sm_abit=cfg.sm_abit,

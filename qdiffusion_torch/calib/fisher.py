@@ -12,14 +12,18 @@ with respect to it. The grads are post-processed as the reference does:
 
 Per batch, the FP forward and the quantized capture of the unit's output
 run under torch.no_grad() (on the card their GroupNorms launch kernel
-B1); the KL forward is differentiable (plain GroupNorm).
+B1, and the FP forward of an LDM its flash attention B2); the KL forward
+is differentiable (plain GroupNorm, materialized attention).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from qdiffusion_torch.calib.capture import _batch_starts, _forward
+from qdiffusion_torch.calib.capture import _batch_starts, _forward, \
+    _model_call
 from qdiffusion_torch.quant.context import QuantCtx, QuantMode
 
 FP = QuantMode()
@@ -35,37 +39,42 @@ def _kl_batchmean(out_q: torch.Tensor, out_fp: torch.Tensor) -> torch.Tensor:
 
 
 def save_grad_data(model, qstate: dict, unit_name: str,
-                   cali_xs: torch.Tensor, cali_ts: torch.Tensor, *,
+                   cali_xs: torch.Tensor, cali_ts: torch.Tensor,
+                   cali_cs: Optional[torch.Tensor] = None, *,
                    act_quant: bool = False,
                    batch_size: int = 8) -> torch.Tensor:
     """Fisher grads |dKL/d out| + 1 of `unit_name`'s output over the
     calibration set (whole batches), in the layout of the unit's output
-    (JAX fisher.py:42-90). The output is captured with the weights
-    hard-rounded (and the activations quantized when act_quant)."""
+    (JAX fisher.py:42-90). cali_cs: a conditional model's contexts. The
+    output is captured with the weights hard-rounded (and the activations
+    quantized when act_quant)."""
     model.requires_grad_(False)
     q_mode = QuantMode(w=True, a=act_quant, soft=False)
     grads = []
     for i in _batch_starts(cali_xs.shape[0], batch_size):
-        x, t = cali_xs[i:i + batch_size], cali_ts[i:i + batch_size]
+        j = i + batch_size
+        x, t = cali_xs[i:j], cali_ts[i:j]
+        c = None if cali_cs is None else cali_cs[i:j]
         with torch.no_grad():
-            out_fp = model(x, t, QuantCtx(qstate, mode=FP))
-            blk_out = _forward(model, qstate, q_mode, (unit_name,), x,
-                               t)[unit_name][1]
+            out_fp = _model_call(model, x, t, QuantCtx(qstate, mode=FP), c)
+            blk_out = _forward(model, qstate, q_mode, (unit_name,), x, t,
+                               c)[unit_name][1]
         grads.append(_kl_grad(model, qstate, unit_name, x, t, out_fp,
-                              blk_out))
+                              blk_out, c))
     return torch.cat(grads, dim=0)
 
 
 def _kl_grad(model, qstate: dict, unit_name: str, x: torch.Tensor,
-             t: torch.Tensor, out_fp: torch.Tensor,
-             blk_out: torch.Tensor) -> torch.Tensor:
+             t: torch.Tensor, out_fp: torch.Tensor, blk_out: torch.Tensor,
+             c: Optional[torch.Tensor] = None) -> torch.Tensor:
     """|d KL(out_fp || model output) / d blk_out| + 1 for one batch, the
-    FP model with `unit_name`'s output replaced by blk_out."""
+    FP model (with context c) with `unit_name`'s output replaced by
+    blk_out."""
     sub = blk_out.detach().requires_grad_(True)
     with torch.enable_grad():
         ctx = QuantCtx(qstate, mode=FP, substitute={unit_name: sub},
                        differentiable=True)
-        kl = _kl_batchmean(model(x, t, ctx), out_fp)
+        kl = _kl_batchmean(_model_call(model, x, t, ctx, c), out_fp)
         (g,) = torch.autograd.grad(kl, sub)
     return torch.abs(g) + 1.0
 

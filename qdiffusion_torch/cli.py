@@ -1,7 +1,7 @@
-"""Command-line entry point of the port: the `sample` subcommand of
-qdiffusion_tpu/cli.py for the pixel, ldm and sd families, and
-`make-cali-data` and `calibrate` (the weight pass, then the activation
-pass with --quant-act) for the pixel family:
+"""Command-line entry point of the port: the `sample`, `make-cali-data`
+and `calibrate` subcommands of qdiffusion_tpu/cli.py for the pixel, ldm
+and sd families (calibrate: the weight pass, then the activation pass
+with --quant-act):
 
   python -m qdiffusion_torch.cli make-cali-data --task cifar10 \\
       --n 256 --out cali/traj.npz
@@ -21,6 +21,14 @@ pass with --quant-act) for the pixel family:
       --qstate w4.npz --weight-bit 4 --engine fold --dtype bfloat16 \\
       --n 8 --batch 4 --npz-out samples/
 
+  python -m qdiffusion_torch.cli make-cali-data --task sd_v1 \\
+      --ckpt unet.npz --clip-ckpt clip.npz --token-ids ids.npz --n 4 \\
+      --out cali/sd_traj.npz
+  python -m qdiffusion_torch.cli calibrate --task sd_v1 --ckpt unet.npz \\
+      --cali-data cali/sd_traj.npz --weight-bit 4 --split --quant-act \\
+      --sm-abit 16 --running-stat --alpha-dtype bfloat16 \\
+      --act-init-batch 4 --cali-batch-size 4 --run-dir logs/sd_w4a8
+
 Engines (--engine, with --qstate; cli.py:334-379 of the JAX package):
 sim (fake-quant), fold (weight-only, folded weights), int8 (with
 --quant-act: integer kernels, bf16 carriers; without it, the weight-only
@@ -38,15 +46,22 @@ are not ported. The output is the bulk uint8 npz of the JAX CLI
 (N x H x W x C); PNG output is not ported.
 
 make-cali-data writes the FP sampling trajectory (JAX keys "xs" [S, B,
-H, W, C] and "ts" [S, B]); its initial noise is drawn per item as
-`sample` draws it. calibrate (calib/engine.py) runs the AdaRound weight
-pass, then with --quant-act the activation pass; --resume-w QSTATE runs
-only the activation pass on a weight pass's qstate. It snapshots into
-the run directory (utils/checkpoints.py::CalibCheckpointer) and writes
-<run dir>/qstate.npz in the JAX layout, which `sample --qstate` and the
-JAX package both read; `--run-dir` of a run that stopped resumes it
-after the last snapshot, whichever package wrote it. The latent tasks
-exit with a message: their calibration is ROADMAP A4c.
+H, W, C] and "ts" [S, B]; for sd also "cs" and "ucs" [S, B, 77, D], the
+cond and uncond contexts at every step), so either package's calibrate
+reads the other's file; its initial noise is drawn per item as `sample`
+draws it. The latent tasks run their preset sampler (DDIM or PLMS, CFG
+at --scale) without the decode; an sd task needs --token-ids (the port
+has no tokenizer). calibrate (calib/engine.py) runs the AdaRound weight
+pass, then with --quant-act the activation pass (sd: on the cond and
+uncond contexts back to back); --resume-w QSTATE runs only the
+activation pass on a weight pass's qstate. It snapshots into the run
+directory (utils/checkpoints.py::CalibCheckpointer) and writes <run
+dir>/qstate.npz in the JAX layout, which `sample --qstate` and the JAX
+package both read; `--run-dir` of a run that stopped resumes it after
+the last snapshot, whichever package wrote it. With --quant-act,
+calibrate and sample build the LDM UNet with act_quant_partition, as the
+JAX CLI does (cli.py:88, :334), so an AttentionBlock's attention
+quantizers sit at the sites the JAX package calibrates.
 """
 
 from __future__ import annotations
@@ -87,7 +102,8 @@ def _schedule(task):
                              s.beta_end)
 
 
-def build_model_and_pipeline(task, qflags=None, device="cuda"):
+def build_model_and_pipeline(task, qflags=None, device="cuda",
+                             act_quant=False):
     from qdiffusion_torch.pipelines import (
         LatentDiffusionPipeline,
         PixelDiffusionPipeline,
@@ -114,7 +130,8 @@ def build_model_and_pipeline(task, qflags=None, device="cuda"):
     cfg = dataclasses.replace(task.unet_ldm, split_shortcut=True) \
         if split else task.unet_ldm
     policy = qflags.policy_ldm() if qflags else None
-    model = LDMUNet(cfg, policy, device=device)
+    model = LDMUNet(cfg, policy, act_quant_partition=act_quant,
+                    device=device)
     text = CLIPTextEncoder(task.clip or CLIPTextConfig(), device=device) \
         if task.family == "sd" else None
     pipe = LatentDiffusionPipeline(
@@ -189,31 +206,43 @@ def _item_noise(seeds, shape) -> torch.Tensor:
         for s in seeds])
 
 
-A4C = "ROADMAP A4c (not ported yet; the port calibrates the pixel task)"
-
-
-def _pixel_only(task, what: str):
-    if task.family != "pixel":
-        raise SystemExit(f"{what} for a {task.family} task is {A4C}")
-
-
 def cmd_make_cali_data(args) -> dict:
     device = resolve_device(args.device)
     task = resolve_task(args)
-    _pixel_only(task, "make-cali-data")
+    if task.family == "sd" and not args.token_ids:
+        raise SystemExit("make-cali-data for an sd task needs --token-ids "
+                         "(and --clip-ckpt): calibrate reads the cond and "
+                         "uncond contexts of every step, and the port has "
+                         "no tokenizer for --prompt")
     model, pipe = build_model_and_pipeline(task, device=device)
     model.load_state_dict(load_fp_params(args.ckpt, model) if args.ckpt
                           else model.init_params(0))
     seeds = np.arange(args.n, dtype=np.int64) \
         + np.int64(args.seed) * 1000003
-    x0 = _item_noise(seeds, (task.image_size, task.image_size,
-                             task.channels)).to(device)
+    steps = args.timesteps or task.sampler.timesteps
     t0 = time.perf_counter()
-    _, traj = pipe.sample(args.n, timesteps=args.timesteps
-                          or task.sampler.timesteps,
-                          skip_type=task.sampler.skip_type,
-                          eta=task.sampler.eta, x_init=x0,
-                          return_trajectory=True)
+    if task.family == "pixel":
+        x0 = _item_noise(seeds, (task.image_size, task.image_size,
+                                 task.channels)).to(device)
+        _, traj = pipe.sample(args.n, timesteps=steps,
+                              skip_type=task.sampler.skip_type,
+                              eta=task.sampler.eta, x_init=x0,
+                              return_trajectory=True)
+    else:
+        # the preset's sampler without the decode, CFG at --scale
+        # (JAX cli.py:219-232)
+        cond, uncond = tile_conditioning(
+            *build_conditioning(args, task, pipe, device), args.n)
+        x0 = _item_noise(seeds, (task.latent_size, task.latent_size,
+                                 task.latent_channels)).to(device)
+        sampler = task.sampler.sample_type \
+            if task.sampler.sample_type in ("ddim", "plms") else "ddim"
+        _, traj = pipe.sample(
+            args.n, sampler=sampler, steps=steps, eta=task.sampler.eta,
+            cond=cond, uncond=uncond,
+            guidance_scale=args.scale if args.scale is not None
+            else task.sampler.guidance_scale,
+            decode=False, x_init=x0, return_trajectory=True)
     _sync(device)
     seconds = time.perf_counter() - t0
     out = Path(args.out)
@@ -232,8 +261,8 @@ def cmd_calibrate(args) -> dict:
         load_qstate
 
     task = resolve_task(args)
-    _pixel_only(task, "calibrate")
     device = resolve_device(args.device)
+    cond = task.family == "sd"
     qflags = _quant_flags(
         args, cali_st=args.cali_st, cali_n=args.cali_n,
         cali_batch_size=args.cali_batch_size, cali_iters=args.cali_iters,
@@ -255,13 +284,20 @@ def cmd_calibrate(args) -> dict:
     level = root.level
     root.setLevel(logging.INFO)
     try:
-        model, _ = build_model_and_pipeline(task, qflags, device)
+        with np.load(args.cali_data) as data:
+            keys = ("xs", "ts") + (("cs", "ucs") if cond else ())
+            missing = [k for k in keys if k not in data.files]
+            if missing:
+                raise SystemExit(
+                    f"{args.cali_data} has no {missing}: an sd trajectory "
+                    "comes from make-cali-data --token-ids")
+            traj = {k: torch.from_numpy(data[k]).to(device) for k in keys}
+        model, _ = build_model_and_pipeline(task, qflags, device,
+                                            act_quant=args.quant_act)
         model.load_state_dict(load_fp_params(args.ckpt, model) if args.ckpt
                               else model.init_params(0))
-        with np.load(args.cali_data) as data:
-            traj = {k: torch.from_numpy(data[k]).to(device)
-                    for k in ("xs", "ts")}
-        cali = get_train_samples(traj, qflags.cali_n, qflags.cali_st)
+        cali = get_train_samples(traj, qflags.cali_n, qflags.cali_st,
+                                 cond=cond)
         del traj
         logging.getLogger(__name__).info(
             "calibration data: %s", [tuple(c.shape) for c in cali])
@@ -321,7 +357,8 @@ def cmd_sample(args) -> dict:
     task = resolve_task(args)
     pixel = task.family == "pixel"
     qflags = _quant_flags(args) if args.qstate else None
-    model, pipe = build_model_and_pipeline(task, qflags, device)
+    model, pipe = build_model_and_pipeline(task, qflags, device,
+                                           act_quant=args.quant_act)
     model.load_state_dict(load_fp_params(args.ckpt, model) if args.ckpt
                           else model.init_params(0))
     if not pixel:
@@ -494,6 +531,13 @@ def main(argv=None):
     sp.add_argument("--task", required=True)
     sp.add_argument("--ckpt", help="FP UNet params npz (JAX save_pytree "
                                    "format)")
+    sp.add_argument("--clip-ckpt", help="CLIP text-tower params npz (sd "
+                                        "tasks)")
+    sp.add_argument("--token-ids",
+                    help="npz with 'cond' (P, 77) and 'uncond' (1, 77) CLIP "
+                         "token ids (sd tasks; --n divisible by P)")
+    sp.add_argument("--scale", type=float,
+                    help="CFG guidance scale (default: task preset)")
     sp.add_argument("--n", type=int, default=256)
     sp.add_argument("--timesteps", type=int)
     sp.add_argument("--seed", type=int, default=1234)

@@ -8,8 +8,9 @@ A model registers, while it builds its submodules:
     reference's named_children DFS, each with a standalone `apply` that
     calibration (calib/) replays on captured inputs. The forward calls
     every unit through `_unit_call`, which records the unit's (input,
-    output) when the ctx captures it. LDMUNet registers its units without
-    `apply` (its calibration is not ported yet).
+    output) when the ctx captures it. A unit without `layer_names` (the
+    LDM AttentionBlock's matmul units) holds activation quantizers only:
+    the weight pass skips it.
 """
 
 from __future__ import annotations
@@ -29,14 +30,18 @@ class ReconUnit:
     """One reconstruction target: a leaf layer or a structural block."""
 
     name: str
-    kind: str  # 'layer' | 'resnet' | 'attn'
+    # 'layer' | 'resnet' | 'attn' (DDIMUNet); 'layer' | 'resblock' |
+    # 'attnblock' | 'transformer' | 'qkmatmul' | 'smvmatmul' (LDMUNet)
+    kind: str
     layer_names: List[str]  # quantizable conv/linear sites inside
     takes_temb: bool = False
     # standalone forward (ctx, *inputs) -> out; the weights are the
     # model's own modules, so no params argument (JAX base.py:27)
     apply: Optional[Callable] = None
-    # dim the reconstruction Lp loss sums: 1, the channels of the port's
-    # NCHW activations (JAX sums axis -1 of NHWC); -1 for (B, C) units
+    # dim the reconstruction Lp loss sums: 1 for the channels of the
+    # port's NCHW activations (JAX sums axis -1 of NHWC); otherwise the
+    # JAX unit's own axis: -1 for (B, C) and (B, T, C) layers, 1 (the
+    # tokens) for a transformer block, 2 for a (B, H, T, S) q.k^T unit
     loss_axis: int = -1
     # block-level act-quant sites beyond `name` (JAX base.py:33-35)
     extra_sites: List[str] = dataclasses.field(default_factory=list)

@@ -114,30 +114,38 @@ class LatentDiffusionPipeline:
                mode: Optional[QuantMode] = None,
                model_fn: Optional[Callable] = None, decode: bool = True,
                x_init: Optional[torch.Tensor] = None,
-               eval_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+               eval_dtype: Optional[torch.dtype] = None,
+               return_trajectory: bool = False):
         """n samples: images NHWC in [0, 1] (f32), or the latents when
         decode is False. The initial noise is x_init, or drawn from
-        `generator` on the UNet's device."""
+        `generator` on the UNet's device. return_trajectory=True:
+        (samples, trajectory), the sampler's {"xs", "ts"} plus, with
+        `cond`, "cs" and "ucs": cond and uncond broadcast over the steps
+        (JAX pipelines.py:182-187), the calibration data of the
+        conditional models."""
         device = next(self.unet.parameters()).device
         x = x_init if x_init is not None else torch.randn(
             (n, latent_size, latent_size, latent_channels),
             generator=generator, device=device)
         fn = model_fn or self.model_fn(qstate, mode)
         ac = self.schedule.alphas_cumprod
+        kw = dict(cond=cond, uncond=uncond, guidance_scale=guidance_scale,
+                  eval_dtype=eval_dtype, return_trajectory=return_trajectory)
         if sampler == "ddim":
             z = ddim_sample_ldm(fn, x, DDIMTables.build(ac, steps, eta),
-                                cond=cond, uncond=uncond,
-                                guidance_scale=guidance_scale,
-                                eta_noise=eta > 0, generator=generator,
-                                eval_dtype=eval_dtype)
+                                eta_noise=eta > 0, generator=generator, **kw)
         elif sampler == "plms":
-            z = plms_sample(fn, x, DDIMTables.build(ac, steps, 0.0),
-                            cond=cond, uncond=uncond,
-                            guidance_scale=guidance_scale,
-                            eval_dtype=eval_dtype)
+            z = plms_sample(fn, x, DDIMTables.build(ac, steps, 0.0), **kw)
         else:
             raise NotImplementedError(sampler)
-        return self.decode(z, eval_dtype) if decode else z
+        if not return_trajectory:
+            return self.decode(z, eval_dtype) if decode else z
+        z, traj = z
+        if cond is not None:
+            s = traj["xs"].shape[0]
+            traj["cs"] = cond[None].expand(s, *cond.shape)
+            traj["ucs"] = uncond[None].expand(s, *uncond.shape)
+        return (self.decode(z, eval_dtype) if decode else z), traj
 
     @torch.no_grad()
     def decode(self, z: torch.Tensor,

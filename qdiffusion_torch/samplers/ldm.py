@@ -12,14 +12,17 @@ numpy, read as f32 scalars as the scan reads its f32 device tables.
     split (plms.py:181-196).
 
 eval_dtype: the model's carrier (bf16 deployment); the sampler carry, the
-eps history and the update math stay f32. Trajectory capture (the
-calibration-data hook) is not ported.
+eps history and the update math stay f32. return_trajectory=True also
+returns {"xs": [S, B, ...], "ts": [S, B]}: the carry and the timesteps at
+the input of each step, the calibration data of the latent models (JAX
+ldm.py:125-130, :207-215; reference plms.py:134, 166-171). PLMS's first
+step calls the model twice and is one entry.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -59,6 +62,23 @@ class DDIMTables:
                 f(self.sqrt_one_minus_alphas[index]), f(self.sigmas[index]))
 
 
+class _Trajectory:
+    """The (x_t, t) at the input of each step, when asked for."""
+
+    def __init__(self, on: bool):
+        self.on, self.xs, self.ts = on, [], []
+
+    def record(self, x: torch.Tensor, tb: torch.Tensor):
+        if self.on:
+            self.xs.append(x)
+            self.ts.append(tb)
+
+    def result(self, x: torch.Tensor):
+        if not self.on:
+            return x
+        return x, {"xs": torch.stack(self.xs), "ts": torch.stack(self.ts)}
+
+
 def _cfg_eps(model_fn: CondModelFn, x, t, cond, uncond,
              scale: float) -> torch.Tensor:
     if cond is None or uncond is None or scale == 1.0:
@@ -96,28 +116,34 @@ def ddim_sample_ldm(model_fn: CondModelFn, x: torch.Tensor,
                     uncond: Optional[torch.Tensor] = None,
                     guidance_scale: float = 1.0, eta_noise: bool = True,
                     generator: Optional[torch.Generator] = None,
-                    eval_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                    eval_dtype: Optional[torch.dtype] = None,
+                    return_trajectory: bool = False
+                    ) -> Union[torch.Tensor, Tuple[torch.Tensor, dict]]:
     """LDM DDIM sampling loop (reference ddim_sampling, ddim.py:116-167).
     With eta_noise the step noise comes from `generator` on x's device."""
     if eval_dtype is not None:
         x = x.float()
     get_eps = _eps_fn(model_fn, cond, uncond, guidance_scale, eval_dtype)
     n = x.shape[0]
+    traj = _Trajectory(return_trajectory)
     for index in reversed(range(len(tables.timesteps))):
         tb = torch.full((n,), float(tables.timesteps[index]),
                         dtype=torch.float32, device=x.device)
+        traj.record(x, tb)
         e_t = get_eps(x, tb)
         noise = torch.randn(x.shape, generator=generator, dtype=x.dtype,
                             device=x.device) if eta_noise else None
         x = _x_prev(x, e_t, *tables.step(index), noise)
-    return x
+    return traj.result(x)
 
 
 def plms_sample(model_fn: CondModelFn, x: torch.Tensor, tables: DDIMTables,
                 *, cond: Optional[torch.Tensor] = None,
                 uncond: Optional[torch.Tensor] = None,
                 guidance_scale: float = 1.0,
-                eval_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                eval_dtype: Optional[torch.dtype] = None,
+                return_trajectory: bool = False
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, dict]]:
     """PLMS sampling (reference plms_sampling / p_sample_plms): S steps,
     S + 1 model calls (the first step evaluates again at t_next)."""
     if eval_dtype is not None:
@@ -127,9 +153,11 @@ def plms_sample(model_fn: CondModelFn, x: torch.Tensor, tables: DDIMTables,
     t_next_range = np.append(time_range[1:], time_range[-1])
     n = x.shape[0]
     old: list = []  # most recent eps first
+    traj = _Trajectory(return_trajectory)
     for count, index in enumerate(reversed(range(len(time_range)))):
         tb = torch.full((n,), float(time_range[count]), dtype=torch.float32,
                         device=x.device)
+        traj.record(x, tb)
         step = tables.step(index)
         e_t = get_eps(x, tb)
         if count == 0:
@@ -146,4 +174,4 @@ def plms_sample(model_fn: CondModelFn, x: torch.Tensor, tables: DDIMTables,
                        - 9 * old[2]) / 24
         x = _x_prev(x, e_prime, *step)
         old = [e_t] + old[:2]
-    return x
+    return traj.result(x)

@@ -6,8 +6,9 @@ packages (test_torch_unet.build_pair).
 
 Tolerances:
   * soft and hard rounding, alpha init, temp_decay: elementwise, 1e-6;
-  * DDIM trajectory and calibration samples: 1e-5 (the FP forwards differ
-    in sum order only, ~2e-6);
+  * DDIM trajectory and calibration samples (with per-step contexts
+    also the conditional rows): 1e-5 (the FP forwards differ in sum order
+    only, ~2e-6);
   * captured unit inputs and outputs (FP, asym, grouped): 1e-4 of the
     largest magnitude, after the NHWC -> NCHW move;
   * reconstruct_unit, with JAX's minibatch indices in place of the
@@ -161,8 +162,20 @@ def test_trajectory_and_train_samples_match_jax(tiny):
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
                                        atol=1e-5)
-    with pytest.raises(NotImplementedError, match="A4c"):
-        get_train_samples(traj, 3, 4, cond=True)
+    # the conditional branch on per-step contexts: the cond rows, then
+    # the same samples with the uncond rows (JAX samples.py:38-44)
+    rng = np.random.default_rng(9)
+    ctx = {k: rng.standard_normal((len(seq), 4, 5, 6)).astype(np.float32)
+           for k in ("cs", "ucs")}
+    got = get_train_samples({**traj, **{k: _t(v) for k, v in ctx.items()}},
+                            cali_n=3, cali_st=4, cond=True)
+    want = jax_samples({**jtraj, **{k: jnp.asarray(v)
+                                     for k, v in ctx.items()}},
+                       cali_n=3, cali_st=4, cond=True)
+    assert len(got) == len(want) == 3 and got[2].shape == (30, 5, 6)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
 
 
 # -- captures ----------------------------------------------------------------

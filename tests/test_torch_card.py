@@ -928,3 +928,172 @@ def test_tiny_stream_step_sites_match_cpu(card, weight_bit):
     finally:
         ql.int4_dense_stream, ql.int8_dense_stream = saved
     assert errs and max(errs) <= 1e-3, (len(errs), max(errs))
+
+
+# -- the latent models' calibration ------------------------------------------
+
+SD_TINY = dict(image_size=16, in_channels=4, out_channels=4,
+               model_channels=32, num_res_blocks=1, attention_resolutions=(2,),
+               channel_mult=(1, 2), num_heads=4, use_spatial_transformer=True,
+               transformer_depth=1, context_dim=24)
+
+
+def _tiny_sd(card, **flags):
+    """SD_TINY (tests/test_torch_unet_ldm.py) on the CPU and on the card
+    with the same seeded weights, flash_threshold 16: its four 64-token
+    self-attentions take B2 in a forward that may."""
+    from qdiffusion_torch.config import QuantFlags
+    from qdiffusion_torch.models.unet_ldm import LDMUNet, LDMUNetConfig
+
+    models = []
+    for dev in ("cpu", card):
+        m = LDMUNet(LDMUNetConfig(**SD_TINY), QuantFlags(**flags).policy_ldm(),
+                    flash_threshold=16, device=dev)
+        m.load_state_dict(m.init_params(0) if dev == "cpu"
+                          else models[0].state_dict())
+        models.append(m)
+    return models
+
+
+def _sd_data(n=16):
+    rng = np.random.default_rng(5)
+    return (torch.from_numpy(rng.standard_normal((n, 16, 16, 4)).astype(
+        np.float32)), torch.linspace(0.0, 999.0, n),
+        torch.from_numpy(rng.standard_normal((n, 7, 24)).astype(np.float32)))
+
+
+def test_tiny_sd_captures_launch_no_flash_kernel(card):
+    """An FP forward of SD_TINY on the card launches B2 at its four
+    64-token self-attentions; a grouped FP capture of every unit and an
+    asym capture launch neither B2 nor B3 (captures materialize attention,
+    as in the JAX package), and the card's captures match the CPU's
+    within 1e-4 of the largest magnitude."""
+    from qdiffusion_torch import resolve_device
+    from qdiffusion_torch.calib.capture import GroupedCapture
+    from qdiffusion_torch.calib.engine import init_weight_qstate
+    from qdiffusion_torch.ops.flash_attention import flash_attention
+    from qdiffusion_torch.ops.flash_streaming import \
+        streaming_flash_attention
+
+    resolve_device(card)
+    cpu_m, card_m = _tiny_sd(card, weight_bit=4)
+    xs, ts, cs = _sd_data(8)
+    b2 = flash_attention.launches
+    with torch.no_grad():
+        card_m(xs[:2].to(card), ts[:2].to(card), None, cs[:2].to(card))
+    assert flash_attention.launches == b2 + 4
+    names = tuple(u.name for u in card_m.units)
+    b2, b3 = flash_attention.launches, streaming_flash_attention.launches
+    got = GroupedCapture(card_m, batch_size=4).fp_capture(
+        names, xs.to(card), ts.to(card), cs.to(card))
+    q = init_weight_qstate(card_m)
+    unit = "output_blocks.0.1.transformer_blocks.0"
+    asym = GroupedCapture(card_m, batch_size=4).quant_capture(
+        q, unit, xs.to(card), ts.to(card), cs.to(card))
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, streaming_flash_attention.launches) \
+        == (b2, b3)
+    want = GroupedCapture(cpu_m, batch_size=4).fp_capture(names, xs, ts, cs)
+    want_asym = GroupedCapture(cpu_m, batch_size=4).quant_capture(
+        init_weight_qstate(cpu_m), unit, xs, ts, cs)
+    pairs = [(g, w) for n in names for g, w in zip(
+        (*got[n][0], got[n][1]), (*want[n][0], want[n][1]))]
+    for g, w in pairs + list(zip(asym, want_asym)):
+        err = float((g.cpu() - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), err
+
+
+def test_tiny_transformer_recon_card_matches_cpu(card, monkeypatch):
+    """The act reconstruction (32 iterations) of a transformer-block unit
+    of SD_TINY W4A8 (inputs: tokens and the context) on the card and on
+    the CPU from the same FP captures, qstate and minibatch indices: no
+    B1, B2 or B3 launch inside, and every delta (the layers' inputs and
+    attn1 / attn2's q, k, v, sm) within 1e-4 relative, or four times the
+    CPU's own spread under 2e-6 relative input noise where larger, as in
+    test_tiny_act_recon_card_matches_cpu."""
+    from qdiffusion_torch import resolve_device
+    from qdiffusion_torch.calib import recon
+    from qdiffusion_torch.calib.capture import capture_unit_io
+    from qdiffusion_torch.calib.engine import init_act_qstate, \
+        init_weight_qstate
+    from qdiffusion_torch.ops.flash_attention import flash_attention
+    from qdiffusion_torch.ops.flash_streaming import \
+        streaming_flash_attention
+
+    resolve_device(card)
+    name = "input_blocks.3.1.transformer_blocks.0"
+    cpu_m, card_m = _tiny_sd(card, weight_bit=4, quant_act=True,
+                             a_min_max=True)
+    xs, ts, cs = _sd_data()
+    q = init_act_qstate(cpu_m, init_weight_qstate(cpu_m), xs[:8], ts[:8],
+                        cs[:8])
+    inps, out = capture_unit_io(cpu_m, q, name, xs, ts, cs, batch_size=8)
+    assert inps[1].shape == (16, 7, 24)
+    idx = torch.randint(0, 16, (32, 8),
+                        generator=torch.Generator().manual_seed(0))
+    monkeypatch.setattr(recon, "_batch_indices",
+                        lambda i, n, bs, gen: idx[i])
+    cfg = recon.ReconConfig(iters=32, batch_size=8, p=2.4)
+
+    def run(m, dev, seed=0):
+        noise = [1.0 if seed == 0 else 1.0 + 2e-6 * torch.randn(
+            a.shape, generator=torch.Generator().manual_seed(seed))
+            for a in inps]
+        unit = next(u for u in m.units if u.name == name)
+        qd = {s: {k: {n: v.to(dev) for n, v in st.items()}
+                  for k, st in sl.items()} for s, sl in q.items()}
+        new = recon.reconstruct_unit(
+            m, qd, unit, tuple((a * z).to(dev) for a, z in zip(inps, noise)),
+            out.to(dev), cfg, act_quant=True)
+        return {site: {k: d.cpu() for k, d in sl.items()} for site, sl
+                in recon.extract_trainable(new, unit, "act").items()}
+
+    kernels = (fused_group_norm, flash_attention, streaming_flash_attention)
+    before = [f.launches for f in kernels]
+    got = run(card_m, card)
+    assert [f.launches for f in kernels] == before
+    want = run(cpu_m, "cpu")
+    spread = [run(cpu_m, "cpu", seed) for seed in (1, 2, 3, 4)]
+    assert {f"{name}.attn1", f"{name}.attn2"} <= set(want)
+    for site, slots in want.items():
+        for slot, d in slots.items():
+            rel = lambda a: float((a - d).abs() / d.abs())  # noqa: E731
+            bound = max(1e-4, 4.0 * max(rel(r[site][slot]) for r in spread))
+            assert rel(got[site][slot]) <= bound, (site, slot)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["B2", "B3"])
+def test_flash_kernels_with_a_16bit_softmax_quantizer(card, kernel, dtype):
+    """The softmax quantizer of a W4A8 calibration at --sm-abit 16 (65,536
+    levels, always_zero, delta 1/65535): each kernel against its plain
+    version, the output as in test_flash_kernels_match_plain and the
+    quantized probabilities that feed PV in at most 1e-3 of the elements
+    one bucket apart (bucket_flip_share)."""
+    from qdiffusion_torch.ops.flash_attention import bucket_flip_share, \
+        flash_attention, flash_attention_plain
+    from qdiffusion_torch.ops.flash_streaming import \
+        streaming_flash_attention, streaming_flash_attention_plain
+    from qdiffusion_torch.quant.affine import AffineQuantizerSpec
+
+    fn, plain = (flash_attention, flash_attention_plain) if kernel == "B2" \
+        else (streaming_flash_attention, streaming_flash_attention_plain)
+    shape = (2, 128, 300, 2, 40)
+    q, k, v = _attn_inputs(card, shape, dtype, seed=6)
+    q = (2.5 * q.float()).to(dtype)
+    spec = AffineQuantizerSpec(n_bits=16, always_zero=True)
+    delta = 1.0 / 65535
+    sm_q = ({"delta": torch.tensor(delta, device=card),
+             "zero_point": torch.tensor(0.0, device=card)}, spec)
+    kw = dict(scale=shape[-1] ** -0.5, sm_q=sm_q)
+    got = fn(q, k, v, **kw)
+    want = plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+    else:
+        diff = (got - want).abs()
+        assert float(diff.max()) <= 5e-5 + delta * float(v.abs().max())
+        assert float((diff > 5e-5).float().mean()) <= 1e-3
+    assert bucket_flip_share(fn, plain, q, k, **kw) <= 1e-3

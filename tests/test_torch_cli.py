@@ -1,4 +1,5 @@
-"""The port's `sample` CLI on a tiny pixel task, on the CPU.
+"""The port's CLI on a tiny pixel task (and one tiny unconditional latent
+task's calibration chain), on the CPU.
 
 The fold-W4 run is held against the JAX package: the same params (seed
 0 through the port's init_params), the same qstate file and the same
@@ -29,6 +30,8 @@ from qdiffusion_torch.config import (
     QuantFlags, SamplerConfig, ScheduleConfig, TaskConfig)
 from qdiffusion_torch.convert import to_jax_params
 from qdiffusion_torch.models.unet_ddim import DDIMUNet, DDIMUNetConfig
+from qdiffusion_torch.models.unet_ldm import LDMUNetConfig
+from qdiffusion_torch.models.vae import VAEConfig
 from qdiffusion_torch.utils.checkpoints import load_qstate, save_qstate
 
 torch.set_num_threads(1)
@@ -167,16 +170,90 @@ def test_make_cali_data_calibrate_then_sample(tmp_path):
     ["calibrate", "--task", "sd_v1"],
     ["make-cali-data", "--task", "sd_v1"],
 ])
-def test_calibration_beyond_the_weight_pass_is_refused(argv, tmp_path):
-    """Calibration of the latent tasks exits naming the roadmap item that
-    brings it, before any work."""
+def test_sd_calibration_without_contexts_is_refused(argv, tmp_path):
+    """SD calibration reads the cond and uncond contexts of every step:
+    make-cali-data without --token-ids (the port has no tokenizer), and
+    calibrate on a trajectory without "cs" / "ucs", exit with a message
+    naming what is missing, before any work."""
     if argv[0] == "calibrate":
-        argv = argv + ["--cali-data", str(tmp_path / "none.npz")]
+        np.savez(tmp_path / "traj.npz", xs=np.zeros((2, 1, 8, 8, 4),
+                                                     np.float32),
+                 ts=np.zeros((2, 1), np.float32))
+        argv = argv + ["--cali-data", str(tmp_path / "traj.npz"),
+                       "--run-dir", str(tmp_path / "run")]
     else:
         argv = argv + ["--out", str(tmp_path / "t.npz")]
-    with pytest.raises(SystemExit, match="A4c"):
+    with pytest.raises(SystemExit, match="token-ids"):
         cli.main(argv + ["--device", "cpu"])
-    assert not list(tmp_path.iterdir())
+    assert sorted(p.name for p in tmp_path.iterdir()) == (
+        ["run", "traj.npz"] if argv[0] == "calibrate" else [])
+    if argv[0] == "calibrate":
+        assert not list((tmp_path / "run").glob("*.npz"))
+
+
+LDM_TASK = TaskConfig(
+    name="ldm-tiny", family="ldm",
+    schedule=ScheduleConfig("ldm", "linear", 0.0015, 0.0195, 1000),
+    sampler=SamplerConfig("ddim", 4, "uniform", 0.0),
+    image_size=16, channels=3, latent_size=8, latent_channels=3,
+    unet_ldm=LDMUNetConfig(
+        image_size=8, in_channels=3, out_channels=3, model_channels=32,
+        num_res_blocks=1, attention_resolutions=(4, 2), channel_mult=(1, 2),
+        num_head_channels=16),
+    vae=VAEConfig(ch=32, out_ch=3, ch_mult=(1, 2), num_res_blocks=1,
+                  attn_resolutions=(), in_channels=3, resolution=16,
+                  z_channels=3, double_z=True, embed_dim=3))
+
+
+def test_ldm_make_cali_data_calibrate_then_sample(tmp_path, monkeypatch):
+    """An unconditional latent task (LSUN-beds-shaped UNet, legacy
+    AttentionBlocks) through the CLI: make-cali-data (DDIM latents, no
+    contexts; the JAX package's get_train_samples reads the file alike),
+    calibrate --quant-act (W4A8, both passes) on the partitioned model,
+    whose qstate holds the attention quantizers at the partition's sites
+    and loads in JAX, then sample --quant-act --engine sim on it."""
+    from qdiffusion_tpu.calib.samples import get_train_samples as jax_samples
+
+    from qdiffusion_torch.calib.samples import get_train_samples
+    from qdiffusion_torch.models.vae import VAE
+    from qdiffusion_torch.utils.checkpoints import save_nested
+
+    monkeypatch.setitem(config.PRESETS, "ldm-tiny", LDM_TASK)
+    traj = tmp_path / "traj.npz"
+    made = cli.main(["make-cali-data", "--task", "ldm-tiny", "--n", "4",
+                     "--out", str(traj), "--device", "cpu"])
+    assert made["shapes"] == {"xs": (4, 4, 8, 8, 3), "ts": (4, 4)}
+    with np.load(traj) as f:
+        assert sorted(f.files) == ["ts", "xs"]
+        got = get_train_samples({k: torch.from_numpy(f[k]) for k in f.files},
+                                4, 2)
+        want = jax_samples({k: jnp.asarray(f[k]) for k in f.files}, 4, 2)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    res = cli.main(["calibrate", "--task", "ldm-tiny", "--cali-data",
+                    str(traj), "--weight-bit", "4", "--quant-act",
+                    "--running-stat", "--cali-st", "2", "--cali-n", "4",
+                    "--cali-batch-size", "4", "--cali-iters", "2",
+                    "--cali-iters-a", "2", "--act-init-batch", "4",
+                    "--run-dir", str(tmp_path / "run"), "--device", "cpu"])
+    assert res["samples"] == 8
+    q = load_qstate(res["path"])
+    parts = [s for s in q if ".attention." in s]
+    assert parts and all(set(q[s]) == ({"q", "k"} if s.endswith("qkv_matmul")
+                                       else {"sm", "v"}) for s in parts)
+    assert not any("sm" in sl for s, sl in q.items() if s not in parts)
+    jq = jax_load_qstate(res["path"])
+    assert sorted(jq) == sorted(q)
+    vae = VAE(LDM_TASK.vae, device="cpu")
+    vae.load_state_dict(vae.init_params(1))
+    save_nested(tmp_path / "vae.npz", to_jax_params(vae.state_dict()))
+    out = cli.main(["sample", "--task", "ldm-tiny", "--vae-ckpt",
+                    str(tmp_path / "vae.npz"), "--qstate", res["path"],
+                    "--weight-bit", "4", "--quant-act", "--engine", "sim",
+                    "--n", "2", "--batch", "2", "--timesteps", "2",
+                    "--npz-out", str(tmp_path / "s.npz"), "--device", "cpu"])
+    assert out["nonfinite"] == 0 and out["model_calls"] == [2]
+    assert _load(out["path"]).shape == (2, 16, 16, 3)
 
 
 CALIB = ["--task", "tiny", "--weight-bit", "4", "--split", "--cali-st", "4",

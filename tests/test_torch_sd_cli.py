@@ -181,3 +181,81 @@ def test_token_ids_need_the_clip_weights(files, tmp_path):
     del args[i:i + 2]
     with pytest.raises(SystemExit, match="clip-ckpt"):
         cli.main(args)
+
+
+def test_make_cali_data_calibrate_then_sample(files, tmp_path):
+    """SD calibration through the CLI: make-cali-data --token-ids writes
+    the JAX keys (xs, ts, cs, ucs) and matches the JAX pipeline's PLMS
+    trajectory with CFG 7.5 on the same noise and contexts (1e-5 of each
+    array's largest magnitude); the JAX package's get_train_samples
+    (cond=True) reads the file as the port's does; calibrate W4A8
+    (--split --sm-abit 16 --running-stat, bf16 alphas) on the cond and
+    uncond rows; then sample --quant-act --engine sim on its qstate."""
+    import jax
+
+    from qdiffusion_tpu.calib.samples import get_train_samples as \
+        jax_samples
+    from qdiffusion_tpu.utils.checkpoints import load_pytree
+
+    from qdiffusion_torch.calib.samples import get_train_samples
+    from qdiffusion_torch.utils.checkpoints import load_qstate
+
+    traj = tmp_path / "traj.npz"
+    made = cli.main(["make-cali-data", "--task", "sd-tiny", "--ckpt",
+                     str(files / "unet.npz"), "--clip-ckpt",
+                     str(files / "clip.npz"), "--token-ids",
+                     str(files / "ids.npz"), "--n", "2", "--seed", "3",
+                     "--out", str(traj), "--device", "cpu"])
+    assert made["shapes"] == {"xs": (4, 2, 8, 8, 4), "ts": (4, 2),
+                              "cs": (4, 2, 77, 32), "ucs": (4, 2, 77, 32)}
+    with np.load(traj) as f:
+        got = {k: f[k] for k in f.files}
+
+    jm = JaxUNet(JaxUNetConfig(**UNET))
+    params = load_pytree(files / "unet.npz", jax.eval_shape(
+        jm.init_params, jax.random.PRNGKey(0)))
+    text = JaxClip(JaxClipConfig(**CLIP))
+    clip_params = jax_load_nested(files / "clip.npz")
+    with np.load(files / "ids.npz") as ids:
+        cond = text.apply(clip_params, jnp.asarray(ids["cond"]))
+        uncond = text.apply(clip_params, jnp.asarray(ids["uncond"]))
+    pipe = JaxPipeline(unet=jm, vae=None, schedule=JaxSchedule.ldm(
+        "linear", 1000, 0.00085, 0.012), conditioning_key="crossattn")
+    x0 = cli._item_noise(np.arange(2) + np.int64(3) * 1000003, (8, 8, 4))
+    _, want = pipe.sample(params, None, 2, sampler="plms", steps=4,
+                          cond=jnp.tile(cond, (2, 1, 1)),
+                          uncond=jnp.tile(uncond, (2, 1, 1)),
+                          guidance_scale=7.5, x_init=jnp.asarray(x0.numpy()),
+                          decode=False, return_trajectory=True)
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        w = np.asarray(w)
+        assert got[k].shape == w.shape
+        assert np.abs(got[k] - w).max() <= 1e-5 * np.abs(w).max(), k
+    port = get_train_samples({k: torch.from_numpy(v) for k, v in
+                              got.items()}, 2, 2, cond=True)
+    jax_rows = jax_samples({k: jnp.asarray(v) for k, v in got.items()}, 2,
+                           2, cond=True)
+    for a, b in zip(port, jax_rows):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+    res = cli.main(["calibrate", "--task", "sd-tiny", "--ckpt",
+                    str(files / "unet.npz"), "--cali-data", str(traj),
+                    "--weight-bit", "4", "--split", "--quant-act",
+                    "--sm-abit", "16", "--running-stat", "--alpha-dtype",
+                    "bfloat16", "--cali-st", "2", "--cali-n", "2",
+                    "--cali-batch-size", "4", "--cali-iters", "2",
+                    "--cali-iters-a", "2", "--act-init-batch", "4",
+                    "--run-dir", str(tmp_path / "run"), "--device", "cpu"])
+    assert res["samples"] == 8  # 2 steps x 2 samples, cond then uncond
+    q = load_qstate(res["path"])
+    site = "input_blocks.3.1.transformer_blocks.0.attn1"
+    assert {"q", "k", "v", "sm"} <= set(q[site])
+    assert q["out.2"]["w"]["alpha"].dtype == torch.bfloat16
+    out = cli.main(_args(files, "--qstate", res["path"], "--weight-bit",
+                         "4", "--split", "--quant-act", "--sm-abit", "16",
+                         "--engine", "sim", "--n", "2", "--batch", "2",
+                         "--timesteps", "2",
+                         "--npz-out", str(tmp_path / "s.npz")))
+    assert out["nonfinite"] == 0 and out["model_calls"] == [3]
+    assert _load(out["path"]).shape == (2, 16, 16, 3)
