@@ -27,8 +27,8 @@ every kernel of them against its plain PyTorch version:
                 batch 64 and a 10-step DDIM through the CLI.
   calib       - the AdaRound weight pass through the CLI: `make-cali-data
                 --n 32 --timesteps 100`, `calibrate --weight-bit 4 --split
-                --cali-st 8 --cali-n 16 --cali-batch-size 32 --cali-iters
-                50` over all 38 units (reference: 256 x 20 samples,
+                --cali-st 8 --cali-n 8 --cali-batch-size 32 --cali-iters
+                20` over all 38 units (reference: 256 x 20 samples,
                 20,000 iterations), `sample --engine fold --qstate <run
                 dir>/qstate.npz --n 64 --batch 64`; spies time each capture
                 and reconstruction, count B1 launches (none inside a
@@ -41,9 +41,9 @@ every kernel of them against its plain PyTorch version:
   calib_act   - the activation pass through the CLI on the calib phase's
                 qstate and trajectory: `calibrate --resume-w <qstate>
                 --quant-act --running-stat --weight-bit 4 --split
-                --cali-iters-a 50` (W4A8, all 38 units; reference 5,000
+                --cali-iters-a 20` (W4A8, all 38 units; reference 5,000
                 iterations); spies time the act init (64 rows, 51 B1
-                launches), the EMA sweep (2 batches of 64, 102), the FP
+                launches), the EMA sweep (1 batch of 64, 51), the FP
                 capture and each reconstruction (B1 0 launches inside),
                 and hold each unit's act block error with its learned
                 deltas to 1.02x its init/EMA deltas' on its captured FP
@@ -94,22 +94,23 @@ every kernel of them against its plain PyTorch version:
                 calls per batch, and the B1/B2/B3 launch counts against a
                 spy's count of one UNet call and one decode;
   8. sd_card_vs_cpu - one fold UNet call with context at 32x32 latents,
-                batch 2, card bf16 against CPU f32 (the 1024-token sites
+                batch 1, card bf16 against CPU f32 (the 1024-token sites
                 reach B2);
   9. sd_sim   - W8A8: activation qstate from 2 inputs, one bf16 UNet call
                 at batch 8 and a 5-step PLMS through the CLI (f32), with
                 B2 launched with its softmax quantizer.
   calib_sd    - the latent models' calibration through the CLI at full
                 SD width, shaped as the JAX package's flagship run:
-                `make-cali-data --task sd_v1 --token-ids --n 4` (PLMS-50,
+                `make-cali-data --task sd_v1 --token-ids --n 2` (PLMS-50,
                 CFG 7.5, f32; B2 10 and B1 per UNet call as the spy counts
                 them), `calibrate --weight-bit 4 --split --alpha-dtype
-                bfloat16 --cali-st 4 --cali-n 4 --cali-batch-size 4
-                --cali-iters 10` (40 rows, cond then uncond; all 80 units),
+                bfloat16 --cali-st 4 --cali-n 2 --cali-batch-size 4
+                --cali-iters 10` (20 rows, cond then uncond; all 80 units),
                 `calibrate --resume-w <it> --quant-act --sm-abit 16
                 --running-stat --act-init-batch 4 --cali-iters-a 10`, then
-                PLMS-5 samples at batch 1 of both qstates (fold; sim W4A8
-                with B2's 16-bit softmax quantizer), launch counts against
+                PLMS-5 samples at batch 1 of both qstates (fold, and sim
+                W4A8 with B2's 16-bit softmax quantizer), launch counts
+                against
                 the spy; spies time every part (trajectory, captures, act
                 init, EMA, reconstructions by unit kind, snapshots), hold
                 B1/B2/B3 at 0 inside the reconstructions and B2/B3 at 0 in
@@ -151,11 +152,64 @@ every kernel of them against its plain PyTorch version:
                 version on the CPU on a copy of that call's inputs: the
                 largest per-site error, 1e-3 of the site's largest output.)
   12. sd_stream_cli - `cli sample --task sd_v1 --weight-bit 4 --engine
-                stream --stream-convs --n 4 --batch 1` (PLMS-50, CFG 7.5;
+                stream --stream-convs --n 2 --batch 1` (PLMS-50, CFG 7.5;
                 B6 launches against 51 x the spy's per-call count per
-                batch; img/s of batches 2-4) and the same at --weight-bit
+                batch; img/s of batch 2) and the same at --weight-bit
                 8 --timesteps 5 --n 2 (B5 on the streamed convs), with the
                 streamed conv sites.
+  The LSUN latent-diffusion family (lsun_beds256: LDM-4, VQ-f4 decode,
+  DDIM-200 at eta 1; lsun_churches256: LDM-8, KL-f8 decode, DDIM "400",
+  which the reference's stride makes 500 UNet calls, at eta 0; full
+  width, seeded weights; `lsun_spy`, before `designs`, records the B1,
+  B2 and B3 shapes of one bf16 UNet call and decode at batch 8, and B6's
+  of one stream W4 call at batch 1, each of whose B6 calls it also holds
+  against the plain version on the CPU on a copy of the call's inputs,
+  1e-3 of the site's largest output):
+  gn_lsun / attn_lsun - B1 at every GroupNorm shape of those calls and
+                decodes, bf16 and f32, as in 1; B2/B3 at LSUN_ATTN_CASES
+                as in 5 (B2 at 14 heads of 32 and 8 heads of 24 in bf16
+                and f32 with and without the quantizers, the KL-f8
+                decode's 1024 keys of 512 on B2's wide design, the VQ-f4
+                decode's 4096 keys on B3, B3 at 1024 keys);
+  lsun        - per preset: a seeded VAE npz file and W4, W8A8 and
+                W4A8 --split qstates of the UNet the CLI draws without
+                --ckpt (acts 'max' from 4 latents, on the
+                act-quant partition that --quant-act builds); `cli sample`
+                through fold (bf16, batch 8, two batches, the preset's
+                steps), sim W8A8 (f32, DDIM-5, two batches of 4), int8
+                W4A8 --split (DDIM-5, two batches of 4) and stream W4
+                --stream-convs (DDIM-20, two batches of 1), the second
+                batch timed, each with every kernel's launch count
+                set to 0 just before and under a spy of every kernel
+                wrapper, split at the UNet-call and decode markers:
+                launches = the spies' count = UNet calls x per call +
+                decodes x per decode, every call alike, UNet calls = the
+                sampler table's length per batch, uint8 256x256 output,
+                finite; one fold UNet call at batch 1 card bf16 against
+                CPU f32 (5e-2 relative L2); one int8 W4A8 call at batch 1
+                and half the latent size on the card's and the CPU's f32
+                carriers, every int8
+                activation within one bucket beyond its input's drift and
+                every B4 call bit for bit against the plain composition;
+                beds: the VQ codes of 8 seeded latents, card against CPU
+                (an f32 flip must be a near-tie within 1e-4 of
+                |z|^2 + |e|^2; bf16 within 2^-6); then B4 at every
+                distinct site of one int8 call at batch 4 and full
+                latents, on the inputs it gave each, as in 10 (bit for
+                bit and int32-exact against the plain composition, timed
+                beside the torch._int_mm route, cuDNN bf16 and the
+                bound), and B6 at every distinct (M, K, N) of the stream
+                call lsun_spy recorded, as in 10;
+  calib_lsun  - the beds W4A8 calibration through the CLI in the
+                reference's LSUN form: `make-cali-data --n 4` (DDIM-200 at
+                eta 1, f32), one `calibrate --weight-bit 4 --split
+                --quant-act --a-min-max --running-stat --cali-st 10
+                --cali-n 4 --cali-batch-size 8 --cali-iters 10
+                --cali-iters-a 10` (40 rows; every unit of both passes),
+                then DDIM-5 samples of its qstate through sim and int8 in
+                two batches of 1; spies as in calib_sd (per-part seconds, peak
+                memory per pass, block errors, B1/B2/B3 0 inside the
+                reconstructions, B2/B3 0 in captures, act init and EMA).
   P, the flash-epilogue probe (kernel flash_epilogue on B2's bf16 kernel):
   13. flash_epilogue - `python -m qdiffusion_torch.scripts.
                 bench_flash_epilogue` at (2, 4096, 8, 40) bf16 (its
@@ -166,8 +220,9 @@ every kernel of them against its plain PyTorch version:
                 most 1e-3 of the elements), the plain time, SDPA's time for
                 the two fp modes, and the bound (one exponential per score).
   (--profile adds torch.profiler breakdowns of a CIFAR fold step, an SD
-  fold UNet call, a CIFAR int8 step and an SD stream W4 UNet call, the
-  last in three windows; by kind from each kernel's own interval, beside
+  fold UNet call, a CIFAR int8 step, an SD stream W4 UNet call, the
+  last in three windows, and of each LSUN preset's fold, int8 and stream
+  UNet calls and bf16 decode; by kind from each kernel's own interval, beside
   the union of the intervals, which is less where kernels overlap on
   several streams, as cuDNN's f32 convolutions do.)
 
@@ -217,15 +272,16 @@ INT8_N = 2 * BATCH  # int8 CLI: two batches, the second one timed
 # card's f32 step to one bucket beyond its input's drift from the CPU's.
 REL_L2_INT8 = 6e-2
 STREAM_N, STREAM_BATCH = 2, 1  # SD stream CLI: batch-1 serving, CFG
-STREAM_N_W4 = 4  # W4 PLMS-50: batches 2-4 give repeated img/s in one run
+STREAM_N_W4 = 2  # W4 PLMS-50: batch 2 timed (4 until the LSUN phases)
 STREAM_REL = 1e-3  # B5/B6: the same bf16 products, summed in another order
 P_SHAPE = (2, 4096, 8, 40)  # P's (B, T, H, D), bench_flash_epilogue.py:112
 # calib: the AdaRound weight pass at full CIFAR width. The reference
 # calibrates on 256 samples x 20 steps with 20,000 iterations per unit;
-# the smoke cuts only those two: a 32-sample DDIM-100 trajectory, 16
+# the smoke cuts only those two: a 32-sample DDIM-100 trajectory, 8
 # samples at each of its 9 sampled steps (cali_st 8 slices every 12th of
-# 100 steps), 50 iterations per unit.
-CALIB_N, CALIB_ST, CALIB_CALI_N, CALIB_ITERS = 32, 8, 16, 50
+# 100 steps; 16 until the LSUN phases needed the time), 20 iterations per
+# unit (50 until then).
+CALIB_N, CALIB_ST, CALIB_CALI_N, CALIB_ITERS = 32, 8, 8, 20
 CALIB_BATCH = 32  # reconstruction minibatch (the reference's)
 RECON_BOUND = 1.02  # after <= 1.02 x before, tests/test_calibration.py:97
 CARD_CPU_UNIT = "up.3.block.0"  # a split up block (4x4, 512 -> 256)
@@ -233,9 +289,9 @@ CARD_CPU_ITERS = 50
 CARD_CPU_LOSS_REL = 1e-3  # per-iteration loss, card against CPU
 CARD_CPU_FLIPS = 1e-3  # share of hard roundings that may differ
 # calib_act: the activation pass on the calib phase's weight qstate and
-# trajectory (the same 144 samples), W4A8 split, running-stat EMA, 50
-# iterations a unit (reference 5,000)
-ACT_ITERS = 50
+# trajectory (the same 72 samples), W4A8 split, running-stat EMA, 20
+# iterations a unit (reference 5,000; 50 until the LSUN phases)
+ACT_ITERS = 20
 ACT_INIT = 64  # act init rows and EMA batch (the reference's)
 ACT_RESUME_ITERS = 10  # the crash-and-resume run checks control flow only
 ACT_CRASH_AT = 13  # the resume run's spy raises in this reconstruction
@@ -247,12 +303,12 @@ HELD = 8  # held inputs of the int8-vs-FP eps comparison
 # calib_sd: the latent models' calibration at full SD v1 width, shaped as
 # the JAX package's flagship run (scripts/run_sd_calibration.sh: W4A8,
 # --split, --sm-abit 16, --running-stat, bf16 alphas, batch 4) and cut in
-# scale only: a 4-image PLMS-50 trajectory, 4 samples at each of the 5
-# steps it slices (cali_st 4 takes every 12th of 50), cond and uncond: 40
-# rows; SDC_ITERS weight and SDC_ITERS_A act iterations a unit (reference
-# 20,000 and 5,000): the fewest tried at which every unit's quality
-# bound holds.
-SDC_N, SDC_ST, SDC_CALI_N = 4, 4, 4
+# scale only: a 2-image PLMS-50 trajectory, 2 samples at each of the 5
+# steps it slices (cali_st 4 takes every 12th of 50), cond and uncond: 20
+# rows (40 until the LSUN phases needed the time); SDC_ITERS weight and
+# SDC_ITERS_A act iterations a unit (reference 20,000 and 5,000): the
+# fewest tried at which every unit's quality bound holds.
+SDC_N, SDC_ST, SDC_CALI_N = 2, 4, 2
 # minibatch, act init rows and EMA batch: one f32 score tensor of a
 # 4096-token self-attention is 2.1 GB at batch 4, and autograd keeps
 # several (at the CLI's default 32, 17 GB each)
@@ -264,7 +320,14 @@ SDC_UNIT_ITERS = 10  # its reconstruction on the card and on the CPU
 SDC_FLIP_SHAPE = (2, 4096, 8, 40)  # B2 with the 16-bit softmax quantizer
 
 
+T_START = time.perf_counter()
+
+
 def _emit(obj: dict):
+    """One JSON line; a phase's line also gets `wall_s`, the seconds since
+    the script started, so the gaps between lines time the phases."""
+    if "phase" in obj:
+        obj = {**obj, "wall_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -415,10 +478,13 @@ def _gn_design(names):
 
 def phase_kernels(shapes: list, check: Checks, designs: dict, *,
                   dtypes=(torch.bfloat16, torch.float32),
-                  phase: str = "kernel_shape", where: str = "") -> list:
+                  phase: str = "kernel_shape", where: str = "",
+                  time_dtypes=None) -> list:
     """B1 at each distinct full (B, ..., C) shape of `shapes` (a call-order
     list, so a shape's multiplicity is its count per call); the path that
-    ran, from `designs` (probe_designs' kernel names), must be the plan's."""
+    ran, from `designs` (probe_designs' kernel names), must be the plan's.
+    The plain version and F.group_norm are timed in `time_dtypes`
+    (default: every dtype), else None."""
     from qdiffusion_torch.ops.groupnorm import fused_group_norm, \
         group_norm_plain
 
@@ -467,10 +533,12 @@ def phase_kernels(shapes: list, check: Checks, designs: dict, *,
                 "ms": _graph_ms([lambda a=a: fused_group_norm(a, scale, bias)
                                  for a in xs]),
                 "plain_ms": _graph_ms([lambda a=a: group_norm_plain(
-                    a, scale, bias) for a in xs], min_calls=5),
+                    a, scale, bias) for a in xs], min_calls=5)
+                if dtype in (time_dtypes or dtypes) else None,
                 "library_ms": _graph_ms([lambda a=a: lib(
                     a.movedim(-1, 1), 32, scale, bias, eps=1e-6)
-                    for a in xs]),
+                    for a in xs])
+                if dtype in (time_dtypes or dtypes) else None,
                 "eager_ms": _time_ms(lambda: fused_group_norm(x, scale,
                                                               bias)),
                 **bound(nbytes, GN_FLOPS_PER_ELEM * x.numel() / F32_FLOPS
@@ -1515,6 +1583,22 @@ ATTN_CASES = [
     ("flash_attention", (2, 1024, 8, 80), 5, (torch.float32,), (False,)),
     ("flash_streaming", (1, 4096, 1, 512), 1, (torch.float32,), (False,))]
 STREAM_ATTN = {(2, 4096, 8, 40), (2, 1024, 8, 80), (1, 4096, 1, 512)}
+# the LSUN paths' shapes, (kernel, shape, sites per call or decode, dtypes,
+# quantizers on): the beds UNet's 14 heads of 32 and the churches UNet's
+# 8 heads of 24 (D class 32, zero-padded) at 32x32 tokens, in bf16 (fold,
+# batch 8) and f32 (the trajectory; stream at batch 1); the churches
+# KL-f8 decode's mid attention at 1024 tokens, which the TPU cost model
+# sends to B2 (its wide design); the beds VQ-f4 decode's at 4096 tokens
+# (B3); and B3 at 1024 keys, held against its plain version though no
+# path sends that shape to it
+LSUN_ATTN_CASES = [
+    ("flash_attention", (8, 1024, 14, 32), 5, _BOTH, (False, True)),
+    ("flash_attention", (8, 1024, 8, 24), 5, _BOTH, (False, True)),
+    ("flash_attention", (1, 1024, 14, 32), 5, (torch.float32,), (False,)),
+    ("flash_attention", (1, 1024, 8, 24), 5, (torch.float32,), (False,)),
+    ("flash_attention", (8, 1024, 1, 512), 1, (torch.bfloat16,), (False,)),
+    ("flash_streaming", (8, 4096, 1, 512), 1, (torch.bfloat16,), (False,)),
+    ("flash_streaming", (8, 1024, 1, 512), 0, _BOTH, (False, True))]
 
 
 def _stream_operands(kernel, M, K, N, gen):
@@ -1533,11 +1617,12 @@ def _stream_operands(kernel, M, K, N, gen):
     return x, w, scale, shift, bias
 
 
-def probe_designs(gn_shapes) -> dict:
+def probe_designs(gn_shapes, streams=()) -> dict:
     """Kernel names of one launch of every B2/B3 case of `ATTN_CASES`, of
     B5/B6 at every shape of an SD stream call (the fixed lists of
     ops/int8_matmul.py, which the int_kernels phase holds its spies'
-    shapes to) and of B1 at each of `gn_shapes` in bf16 and f32, each
+    shapes to) and at each (kernel, (M, K, N)) of `streams`, and of B1 at
+    each of `gn_shapes` in bf16 and f32, each
     under torch.profiler before any CUDA graph exists in the process:
     {(kernel, shape, dtype, quant) or (kernel, (M, K, N)) or
     ("group_norm", shape, dtype): names}."""
@@ -1554,7 +1639,8 @@ def probe_designs(gn_shapes) -> dict:
            "int4_stream_matmul": int4_dense_stream,
            "int8_stream_matmul": int8_dense_stream}
     out = {}
-    for seed, (name, shape, _, dtypes, quants) in enumerate(ATTN_CASES):
+    for seed, (name, shape, _, dtypes, quants) in enumerate(
+            ATTN_CASES + LSUN_ATTN_CASES):
         for dtype in dtypes:
             for quant in quants:
                 (q, k, v), sm_q, v_q = _attn_case(shape, dtype, quant, seed)
@@ -1563,13 +1649,12 @@ def probe_designs(gn_shapes) -> dict:
                                       sm_q=sm_q, v_q=v_q), "flash")
                 del q, k, v
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for kernel, shapes in (("int4_stream_matmul", SD_STREAM_W4),
-                           ("int8_stream_matmul", SD_STREAM_W8)):
-        for M, K, N in shapes:
-            x, w, scale, shift, bias = _stream_operands(kernel, M, K, N, gen)
-            _, out[(kernel, (M, K, N))] = _kernel_names(
-                lambda: fns[kernel](x, w, scale, shift, bias=bias),
-                "stream_")
+    cases = [("int4_stream_matmul", s) for s in SD_STREAM_W4] + [
+        ("int8_stream_matmul", s) for s in SD_STREAM_W8] + list(streams)
+    for kernel, (M, K, N) in dict.fromkeys(cases):
+        x, w, scale, shift, bias = _stream_operands(kernel, M, K, N, gen)
+        _, out[(kernel, (M, K, N))] = _kernel_names(
+            lambda: fns[kernel](x, w, scale, shift, bias=bias), "stream_")
     for shape in sorted(set(gn_shapes)):
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -1582,11 +1667,16 @@ def probe_designs(gn_shapes) -> dict:
     return out
 
 
-def phase_attn_kernels(check: Checks, designs: dict) -> list:
-    """B2 and B3 at the SD and VAE shapes against their plain versions,
-    timed in CUDA graphs over inputs that outgrow the L2; B2 also at P's
-    shape in bf16 and at the SD stream call's shapes in f32. `designs`:
-    `probe_designs`' kernel names."""
+def phase_attn_kernels(check: Checks, designs: dict, cases=ATTN_CASES,
+                       path: str = "sd_v1", first_seed: int = 0,
+                       f32_library=STREAM_ATTN) -> list:
+    """B2 and B3 at `cases` (the SD and VAE shapes; B2 also at P's shape in
+    bf16 and at the SD stream call's shapes in f32) against their plain
+    versions, timed in CUDA graphs over inputs that outgrow the L2. Case i
+    draws its inputs from seed first_seed + i, as `probe_designs` did.
+    SDPA is timed beside every case without quantizers in bf16, and in f32
+    at the shapes of `f32_library`. `designs`: `probe_designs`' kernel
+    names."""
     from qdiffusion_torch.ops.flash_attention import bucket_flip_share, \
         flash_attention, flash_attention_plain
     from qdiffusion_torch.ops.flash_streaming import \
@@ -1598,7 +1688,7 @@ def phase_attn_kernels(check: Checks, designs: dict) -> list:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
     for seed, (name, shape, per_call, dtypes, quants) in enumerate(
-            ATTN_CASES):
+            cases, first_seed):
         fn, plain = fns[name]
         d = shape[-1]
         scale = d ** -0.5
@@ -1646,7 +1736,7 @@ def phase_attn_kernels(check: Checks, designs: dict) -> list:
                 sets = rotations(lambda: tuple(a.clone() for a in (q, k, v)),
                                  3 * q.numel() * es)
                 row = {
-                    "phase": "attn_kernel", "kernel": name,
+                    "phase": "attn_kernel", "path": path, "kernel": name,
                     "shape": list(shape),
                     "dtype": str(dtype).replace("torch.", ""),
                     "quant": quant, "per_call": per_call,
@@ -1664,7 +1754,7 @@ def phase_attn_kernels(check: Checks, designs: dict) -> list:
                         *(a.transpose(1, 2) for a in s), scale=scale)
                         for s in sets], min_calls=10)
                     if not quant and (dtype == torch.bfloat16
-                                      or shape in STREAM_ATTN) else None,
+                                      or shape in f32_library) else None,
                     **attention_bound(shape, es),
                 }
                 del sets, q, k, v
@@ -1850,50 +1940,64 @@ def phase_sd_fold_cli(task, work: Path, spy: dict, check: Checks) -> dict:
     return row
 
 
-def phase_sd_card_vs_cpu(task, work: Path, check: Checks) -> dict:
-    """One fold W4 UNet call with context at 32x32 latents, batch 2: card
-    bf16 (B1, and B2 at the five 1024-token sites) against CPU f32."""
-    from qdiffusion_torch.cli import load_fp_params
-    from qdiffusion_torch.config import QuantFlags
-    from qdiffusion_torch.deploy import fold_weights
-    from qdiffusion_torch.models.unet_ldm import LDMUNet
+def _fold_card_vs_cpu(tag: str, build, args: tuple, check: Checks) -> dict:
+    """One fold W4 UNet call, card bf16 (B1, and B2 at the five 1024-token
+    sites) against CPU f32 within REL_L2_CARD_VS_CPU relative L2:
+    `build(dev)` gives the folded f32 model on `dev`, `args` the call's
+    CPU inputs, x first (cast to bf16 on the card)."""
     from qdiffusion_torch.ops.flash_attention import flash_attention
-    from qdiffusion_torch.utils.checkpoints import load_qstate
 
-    rng = np.random.default_rng(4)
-    x = torch.from_numpy(rng.standard_normal((2, 32, 32, 4)).astype(
-        np.float32))
-    t = torch.tensor([10.0, 500.0])
-    c = torch.from_numpy(rng.standard_normal((2, 77, 768)).astype(
-        np.float32))
     eps, b2 = {}, 0
     for dev, dtype in (("cpu", None), ("cuda", torch.bfloat16)):
-        model = LDMUNet(task.unet_ldm, QuantFlags(weight_bit=4).policy_ldm(),
-                        device=dev)
-        model.load_state_dict(load_fp_params(work / "unet.npz", model))
-        model.load_state_dict(fold_weights(
-            model, load_qstate(work / "w4_qstate.npz", dev)))
-        xin = x.to(dev)
+        model = build(dev)
+        xs = [None if a is None else a.to(dev) for a in args]
         if dtype is not None:
             model.to(dtype)
-            xin = xin.to(dtype)
+            xs[0] = xs[0].to(dtype)
         n = flash_attention.launches
         with torch.no_grad():
-            eps[dev] = model(xin, t.to(dev), None, c.to(dev)).float().cpu()
+            eps[dev] = model(*xs).float().cpu()
         b2 = flash_attention.launches - n if dev == "cuda" else b2
         del model
     ref, got = eps["cpu"], eps["cuda"]
     rel = float(torch.linalg.vector_norm(got - ref)
                 / torch.linalg.vector_norm(ref))
-    check(bool(torch.isfinite(got).all()), "sd card UNet call not finite")
-    check(b2 == 5, f"sd card vs CPU: {b2} B2 launches, expected 5")
+    check(bool(torch.isfinite(got).all()), f"{tag} card UNet call not finite")
+    check(b2 == 5, f"{tag} card vs CPU: {b2} B2 launches, expected 5")
     check(rel <= REL_L2_CARD_VS_CPU,
-          f"sd card bf16 vs CPU f32 fold call: relative L2 {rel}")
-    row = {"phase": "sd_card_vs_cpu", "batch": 2, "latent": 32,
-           "rel_l2": rel, "tolerance": REL_L2_CARD_VS_CPU,
-           "flash_attention_launches": b2,
-           "max_abs_err": float((got - ref).abs().max()),
-           "ref_abs_max": float(ref.abs().max())}
+          f"{tag} card bf16 vs CPU f32 fold call: relative L2 {rel}")
+    return {"rel_l2": rel, "tolerance": REL_L2_CARD_VS_CPU,
+            "flash_attention_launches": b2,
+            "max_abs_err": float((got - ref).abs().max()),
+            "ref_abs_max": float(ref.abs().max())}
+
+
+def phase_sd_card_vs_cpu(task, work: Path, check: Checks) -> dict:
+    """One fold W4 UNet call with context at 32x32 latents, batch 1 (2
+    until the LSUN phases needed the time): card bf16 against CPU f32."""
+    from qdiffusion_torch.cli import load_fp_params
+    from qdiffusion_torch.config import QuantFlags
+    from qdiffusion_torch.deploy import fold_weights
+    from qdiffusion_torch.models.unet_ldm import LDMUNet
+    from qdiffusion_torch.utils.checkpoints import load_qstate
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((2, 32, 32, 4)).astype(
+        np.float32))[:1]
+    t = torch.tensor([10.0])
+    c = torch.from_numpy(rng.standard_normal((2, 77, 768)).astype(
+        np.float32))[:1]
+
+    def build(dev):
+        model = LDMUNet(task.unet_ldm, QuantFlags(weight_bit=4).policy_ldm(),
+                        device=dev)
+        model.load_state_dict(load_fp_params(work / "unet.npz", model))
+        model.load_state_dict(fold_weights(
+            model, load_qstate(work / "w4_qstate.npz", dev)))
+        return model
+
+    row = {"phase": "sd_card_vs_cpu", "batch": 1, "latent": 32,
+           **_fold_card_vs_cpu("sd", build, (x, t, None, c), check)}
     _emit(row)
     return row
 
@@ -1972,16 +2076,33 @@ def phase_sd_sim(task, work: Path, check: Checks) -> dict:
 
 # -- Stable Diffusion v1 calibration: the latent models' path ---------------
 
-def _launch_counts() -> dict:
+def _kernel_counters(*names) -> dict:
+    """Each kernel's launching wrapper, whose `.launches` is its count, by
+    the name the kernels line gives it: `names`, or every kernel but P."""
     from qdiffusion_torch.ops.flash_attention import flash_attention
     from qdiffusion_torch.ops.flash_streaming import \
         streaming_flash_attention
     from qdiffusion_torch.ops.groupnorm import fused_group_norm
+    from qdiffusion_torch.ops.int4_matmul import int4_stream_matmul
+    from qdiffusion_torch.ops.int8_conv import int8_conv
+    from qdiffusion_torch.ops.int8_matmul import int8_stream_matmul
 
-    return {"group_norm": fused_group_norm.launches,
-            "flash_attention": flash_attention.launches,
-            "flash_attention_sm_q": flash_attention.launches_sm_q,
-            "flash_streaming": streaming_flash_attention.launches}
+    table = {"group_norm": fused_group_norm,
+             "flash_attention": flash_attention,
+             "flash_streaming": streaming_flash_attention,
+             "int8_conv": int8_conv,
+             "int4_stream_matmul": int4_stream_matmul,
+             "int8_stream_matmul": int8_stream_matmul}
+    return {k: table[k] for k in names or table}
+
+
+def _launch_counts() -> dict:
+    """B1/B2/B3's launch counts now, and B2's launches with sm_q."""
+    counters = _kernel_counters("group_norm", "flash_attention",
+                                "flash_streaming")
+    out = {k: f.launches for k, f in counters.items()}
+    out["flash_attention_sm_q"] = counters["flash_attention"].launches_sm_q
+    return out
 
 
 class _Parts:
@@ -2005,6 +2126,131 @@ class _Parts:
         for k, v in got.items():
             p[k] += v
         return res, sec, got
+
+
+class _CalibSpies:
+    """The calibration engine's parts under spies for the length of a
+    `with`, each timed into `parts` with its launches: every
+    reconstruction (its unit's block error before and after it, on the
+    unit's captured inputs, into `units[pass]`), the FP and asym
+    captures, the act init, the EMA sweep and the snapshots. `kept[pass]`
+    gets the inputs, target and sites of unit `keep`; `on_act_start` is
+    called before the first act init (the act pass begins)."""
+
+    def __init__(self, parts: "_Parts", batch: int, keep: str = None,
+                 on_act_start=None):
+        self.parts, self.batch, self.keep = parts, batch, keep
+        self.on_act_start = on_act_start
+        self.units = {"weight": [], "act": []}
+        self.kept: dict = {}
+
+    def __enter__(self):
+        from qdiffusion_torch.calib import capture, engine, recon
+        from qdiffusion_torch.utils import checkpoints
+
+        parts, units, kept = self.parts, self.units, self.kept
+        self.targets = ((engine, "reconstruct_unit"),
+                        (capture.GroupedCapture, "fp_capture"),
+                        (capture.GroupedCapture, "quant_capture"),
+                        (engine, "init_act_qstate"),
+                        (engine, "run_running_stat"),
+                        (checkpoints.CalibCheckpointer, "save"))
+        real = self.real = [getattr(m, a) for m, a in self.targets]
+
+        def recon_spy(model, qstate, unit, inps, target, cfg, **kw):
+            act = kw.get("act_quant", False)
+            small = recon.deltas_below_lr(qstate, unit, cfg.lr,
+                                          kw.get("sm_abit", 8)) if act else []
+            start = qstate if act else _nearest(qstate, unit)
+            before = parts("block_error", _block_mse, unit, start, inps,
+                           target, self.batch, act)[0]
+            if unit.name == self.keep:
+                kept["act" if act else "weight"] = dict(
+                    inps=tuple(a.cpu() for a in inps), out=target.cpu(),
+                    qstate=_to({s: qstate[s] for s in recon._sites(unit)
+                                if s in qstate}, "cpu"))
+            new, sec, got = parts(f"recon_{unit.kind}", real[0], model,
+                                  qstate, unit, inps, target, cfg, **kw)
+            after = parts("block_error", _block_mse, unit, new, inps,
+                          target, self.batch, act)[0]
+            units["act" if act else "weight"].append({
+                "unit": unit.name, "kind": unit.kind, "recon_s": sec,
+                "ms_per_iter": sec / cfg.iters * 1e3, "launches": got,
+                "mse_before": before, "mse_after": after,
+                "ratio": after / before,
+                "deltas_below_lr": [f"{s}/{k}" for s, k in small]})
+            return new
+
+        def init_spy(*a, **kw):
+            if self.on_act_start is not None \
+                    and "act_init" not in parts.parts:
+                self.on_act_start()
+            return parts("act_init", real[3], *a, **kw)[0]
+
+        def timed(key, fn):
+            return lambda *a, **kw: parts(key, fn, *a, **kw)[0]
+
+        spies = (recon_spy, timed("fp_capture", real[1]),
+                 timed("asym_capture", real[2]), init_spy,
+                 timed("ema_sweep", real[4]), timed("snapshots", real[5]))
+        for (m, a), fn in zip(self.targets, spies):
+            setattr(m, a, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, a), fn in zip(self.targets, self.real):
+            setattr(m, a, fn)
+
+
+def _calib_checks(tag: str, parts: "_Parts", units: dict, want: dict,
+                  check: Checks) -> dict:
+    """The checks of a spied calibration: each pass reconstructed the
+    units of `want[pass]` in order; B1/B2/B3 never launched inside a
+    reconstruction; the captures, act init and EMA launched B1 and never
+    B2/B3; each unit's block error after at most RECON_BOUND x before
+    (units with a trained delta below the lr exempt, and printed), the
+    sums lower. Returns the quality summary per pass."""
+    for what, names in want.items():
+        check([r["unit"] for r in units[what]] == names,
+              f"{tag} {what} pass reconstructed {len(units[what])} of "
+              f"{len(names)} units")
+    zero = ("group_norm", "flash_attention", "flash_streaming")
+    for what, rows in units.items():
+        inside = [r["unit"] for r in rows
+                  if any(r["launches"][k] for k in zero)]
+        check(not inside, f"{tag} {what} pass: B1/B2/B3 launched inside "
+                          f"the reconstructions of {inside[:4]}")
+    for key in ("fp_capture", "asym_capture", "act_init", "ema_sweep"):
+        p = parts.parts.get(key, {})
+        check(p.get("calls", 0) > 0 and p["group_norm"] > 0,
+              f"{tag} {key}: {p.get('calls', 0)} calls, B1 "
+              f"{p.get('group_norm')} launches")
+        check(p.get("flash_attention", 1) == 0
+              and p.get("flash_streaming", 1) == 0,
+              f"{tag} {key}: B2/B3 launched {p.get('flash_attention')} / "
+              f"{p.get('flash_streaming')} times (they materialize)")
+    quality = {}
+    for what, rows in units.items():
+        held = [r for r in rows if not r["deltas_below_lr"]]
+        for r in held:
+            check(r["ratio"] <= RECON_BOUND,
+                  f"{tag} {what} {r['unit']}: block error {r['ratio']} x "
+                  f"the start's, bound {RECON_BOUND}")
+        before = sum(r["mse_before"] for r in held)
+        after = sum(r["mse_after"] for r in held)
+        check(after < before, f"{tag} {what} pass: sum of block errors "
+                              f"{after} not below {before}")
+        exempt = {r["unit"]: {"ratio": r["ratio"],
+                              "deltas": r["deltas_below_lr"]}
+                  for r in rows if r["deltas_below_lr"]}
+        print(f"{tag} {what} pass: exempt units (a trained delta below "
+              f"the lr): {exempt or 'none'}", flush=True)
+        quality[what] = {"units": len(rows), "held": len(held),
+                         "mse_before_sum": before, "mse_after_sum": after,
+                         "worst_ratio": max((r["ratio"] for r in held),
+                                            default=None),
+                         "below_lr_units": exempt}
+    return quality
 
 
 def _sd_calib_argv(work: Path, run: str, *extra) -> list:
@@ -2041,8 +2287,6 @@ def phase_calib_sd(task, work: Path, spy: dict, smi: str,
     CPU from the same captures, and B2's bucket-flip share at a 16-bit
     softmax quantizer."""
     from qdiffusion_torch import cli
-    from qdiffusion_torch.calib import capture, engine, recon
-    from qdiffusion_torch.utils import checkpoints
 
     work_c = work / "calib_sd"
     traj = work_c / "traj.npz"
@@ -2068,57 +2312,8 @@ def phase_calib_sd(task, work: Path, spy: dict, smi: str,
           f"calib_sd make-cali-data launches {traj_launches}, expected "
           f"{want_traj} ({calls} UNet calls)")
 
-    units = {"weight": [], "act": []}
-    kept: dict = {}
-    real = (engine.reconstruct_unit, capture.GroupedCapture.fp_capture,
-            capture.GroupedCapture.quant_capture, engine.init_act_qstate,
-            engine.run_running_stat, checkpoints.CalibCheckpointer.save)
-
-    def recon_spy(model, qstate, unit, inps, target, cfg, **kw):
-        act = kw.get("act_quant", False)
-        small = recon.deltas_below_lr(qstate, unit, cfg.lr,
-                                      kw.get("sm_abit", 8)) if act else []
-        start = qstate if act else _nearest(qstate, unit)
-        before = parts("block_error", _block_mse, unit, start, inps, target,
-                       SDC_BATCH, act)[0]
-        if unit.name == SDC_UNIT:
-            kept["act" if act else "weight"] = dict(
-                inps=tuple(a.cpu() for a in inps), out=target.cpu(),
-                qstate=_to({s: qstate[s] for s in recon._sites(unit)
-                            if s in qstate}, "cpu"))
-        new, sec, got = parts(f"recon_{unit.kind}", real[0], model, qstate,
-                              unit, inps, target, cfg, **kw)
-        after = parts("block_error", _block_mse, unit, new, inps, target,
-                      SDC_BATCH, act)[0]
-        units["act" if act else "weight"].append({
-            "unit": unit.name, "kind": unit.kind, "recon_s": sec,
-            "ms_per_iter": sec / cfg.iters * 1e3, "launches": got,
-            "mse_before": before, "mse_after": after,
-            "ratio": after / before,
-            "deltas_below_lr": [f"{s}/{k}" for s, k in small]})
-        return new
-
-    def fp_spy(self, *a, **kw):
-        return parts("fp_capture", real[1], self, *a, **kw)[0]
-
-    def q_spy(self, *a, **kw):
-        return parts("asym_capture", real[2], self, *a, **kw)[0]
-
-    def init_spy(*a, **kw):
-        return parts("act_init", real[3], *a, **kw)[0]
-
-    def ema_spy(*a, **kw):
-        return parts("ema_sweep", real[4], *a, **kw)[0]
-
-    def save_spy(self, *a, **kw):
-        return parts("snapshots", real[5], self, *a, **kw)[0]
-
-    (engine.reconstruct_unit, capture.GroupedCapture.fp_capture,
-     capture.GroupedCapture.quant_capture, engine.init_act_qstate,
-     engine.run_running_stat, checkpoints.CalibCheckpointer.save) = (
-        recon_spy, fp_spy, q_spy, init_spy, ema_spy, save_spy)
     torch.cuda.reset_peak_memory_stats()
-    try:
+    with _CalibSpies(parts, SDC_BATCH, keep=SDC_UNIT) as spies:
         cal_w = parts("calibrate_weight", cli.main, _sd_calib_argv(
             work, "run_w", "--cali-iters", str(SDC_ITERS)))[0]
         peak_w = torch.cuda.max_memory_allocated() / 1e9
@@ -2128,57 +2323,16 @@ def phase_calib_sd(task, work: Path, spy: dict, smi: str,
             "--act-bit", "8", "--sm-abit", "16", "--running-stat",
             "--cali-iters-a", str(SDC_ITERS_A)))[0]
         peak_a = torch.cuda.max_memory_allocated() / 1e9
-    finally:
-        (engine.reconstruct_unit, capture.GroupedCapture.fp_capture,
-         capture.GroupedCapture.quant_capture, engine.init_act_qstate,
-         engine.run_running_stat, checkpoints.CalibCheckpointer.save) = real
+    units, kept = spies.units, spies.kept
     torch.cuda.empty_cache()
 
     # the reference's unit list, and the CPU side of the card-vs-CPU check
     cpu_m = _sd_model(task, work, "cpu")
     names = [u.name for u in cpu_m.units]
     n_weight = sum(1 for u in cpu_m.units if u.layer_names)
-    for what, want in (("weight", [u.name for u in cpu_m.units
-                                   if u.layer_names]), ("act", names)):
-        check([r["unit"] for r in units[what]] == want,
-              f"calib_sd {what} pass reconstructed {len(units[what])} of "
-              f"{len(want)} units")
-    zero = {"group_norm": 0, "flash_attention": 0, "flash_streaming": 0}
-    for what, rows in units.items():
-        inside = [r["unit"] for r in rows
-                  if any(r["launches"][k] for k in zero)]
-        check(not inside, f"calib_sd {what} pass: B1/B2/B3 launched inside "
-                          f"the reconstructions of {inside[:4]}")
-    for key in ("fp_capture", "asym_capture", "act_init", "ema_sweep"):
-        p = parts.parts.get(key, {})
-        check(p.get("calls", 0) > 0 and p["group_norm"] > 0,
-              f"calib_sd {key}: {p.get('calls', 0)} calls, B1 "
-              f"{p.get('group_norm')} launches")
-        check(p.get("flash_attention", 1) == 0
-              and p.get("flash_streaming", 1) == 0,
-              f"calib_sd {key}: B2/B3 launched {p.get('flash_attention')} / "
-              f"{p.get('flash_streaming')} times (they materialize)")
-    quality = {}
-    for what, rows in units.items():
-        held = [r for r in rows if not r["deltas_below_lr"]]
-        for r in held:
-            check(r["ratio"] <= RECON_BOUND,
-                  f"calib_sd {what} {r['unit']}: block error {r['ratio']} x "
-                  f"the start's, bound {RECON_BOUND}")
-        before = sum(r["mse_before"] for r in held)
-        after = sum(r["mse_after"] for r in held)
-        check(after < before, f"calib_sd {what} pass: sum of block errors "
-                              f"{after} not below {before}")
-        exempt = {r["unit"]: {"ratio": r["ratio"],
-                              "deltas": r["deltas_below_lr"]}
-                  for r in rows if r["deltas_below_lr"]}
-        print(f"calib_sd {what} pass: exempt units (a trained delta below "
-              f"the lr): {exempt or 'none'}", flush=True)
-        quality[what] = {"units": len(rows), "held": len(held),
-                         "mse_before_sum": before, "mse_after_sum": after,
-                         "worst_ratio": max((r["ratio"] for r in held),
-                                            default=None),
-                         "below_lr_units": exempt}
+    quality = _calib_checks("calib_sd", parts, units, {
+        "weight": [u.name for u in cpu_m.units if u.layer_names],
+        "act": names}, check)
 
     samples = {}
     for key, qpath, extra, sm in (
@@ -2234,7 +2388,9 @@ def phase_calib_sd(task, work: Path, spy: dict, smi: str,
            "weight_units": n_weight,
            "seconds": {k: v["seconds"] for k, v in p.items()},
            "calls": {k: v["calls"] for k, v in p.items()},
-           "launches": {k: {n: v[n] for n in zero} for k, v in p.items()},
+           "launches": {k: {n: v[n] for n in (
+               "group_norm", "flash_attention", "flash_streaming")}
+               for k, v in p.items()},
            "peak_device_gb": {"weight": peak_w, "act": peak_a},
            "ms_per_iter_by_kind": {k: {"median": float(np.median(v)),
                                        "max": max(v), "units": len(v)}
@@ -2623,7 +2779,7 @@ def _identity_packed(packed):
 
 
 def _b4_site(key, x, packed, check) -> dict:
-    """B4 at one CIFAR int8 site on the input the int8 step gave it: the
+    """B4 at one int8 site on the input the int8 call gave it: the
     kernel against the plain composition on the card (the output bit for
     bit; the int32 products exactly, through an identity epilogue on the
     f32 input), then the times in CUDA graphs over copies of x that
@@ -2732,15 +2888,15 @@ def _b4_site(key, x, packed, check) -> dict:
     return row
 
 
-def phase_b4_sites(setup: dict, check: Checks) -> list:
-    """B4 at every distinct site of one CIFAR W4A8 int8 step at batch 64
-    (the B4Sites spy's inputs); per_call is the site's count per step."""
-    counts = _counts(setup["sites"])
+def phase_b4_sites(sites: list, inputs: dict, where: str,
+                   check: Checks) -> list:
+    """B4 at every distinct site of one int8 call (a B4Sites spy's `seen`
+    keys and `inputs`); per_call is the site's count per call."""
+    counts = _counts(sites)
     rows = []
-    for key, (x, packed) in setup["inputs"].items():
+    for key, (x, packed) in inputs.items():
         kind, shape, strides, dtype, segs, n, stride, padding = key
-        row = {"phase": "int_kernel", "kernel": "int8_conv",
-               "where": f"cifar10 W4A8 int8 step, batch {BATCH}",
+        row = {"phase": "int_kernel", "kernel": "int8_conv", "where": where,
                "site": {"kind": kind, "x_shape": list(shape),
                         "x_strides": list(strides), "dtype": dtype,
                         "segments": [[c, list(k)] for c, k in segs], "N": n,
@@ -2813,25 +2969,35 @@ def _stream_case(kernel, M, K, N, gen, check, names) -> dict:
     return row
 
 
+def _stream_rows(kernel: str, shapes: list, where: str, check: Checks,
+                 designs: dict) -> list:
+    """B5 or B6 at every distinct (M, K, N) of one stream UNet call
+    (`shapes` in call order, so a shape's multiplicity is its count per
+    call), as `_stream_case`."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for (M, K, N), per_call in _counts(shapes).items():
+        case = _stream_case(kernel, M, K, N, gen, check,
+                            designs.get((kernel, (M, K, N))))
+        row = {"phase": "int_kernel", "kernel": kernel, "where": where,
+               "shape": [M, K, N], "per_call": per_call, **case}
+        _emit(row)
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_int_kernels(b4: dict, b5: list, b6: list, check: Checks,
                       designs: dict) -> list:
     """B4 at every distinct site of one CIFAR int8 step (`b4`: int8_setup's
-    spy), B5 / B6 at every distinct (M, K, N) of one SD stream UNet call
-    (call-order lists, so a shape's multiplicity is its count per call)."""
-    rows = phase_b4_sites(b4, check)
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    for kernel, shapes, where in (
-            ("int8_stream_matmul", b5, "sd_v1 stream W8 UNet call, batch 2"),
-            ("int4_stream_matmul", b6, "sd_v1 stream W4 UNet call, batch 2")):
-        for (M, K, N), per_call in _counts(shapes).items():
-            case = _stream_case(kernel, M, K, N, gen, check,
-                                designs.get((kernel, (M, K, N))))
-            row = {"phase": "int_kernel", "kernel": kernel, "where": where,
-                   "shape": [M, K, N], "per_call": per_call, **case}
-            _emit(row)
-            rows.append(row)
-            torch.cuda.empty_cache()
-    return rows
+    spy), B5 / B6 at every distinct (M, K, N) of one SD stream UNet call."""
+    return phase_b4_sites(
+        b4["sites"], b4["inputs"], f"cifar10 W4A8 int8 step, batch {BATCH}",
+        check) + _stream_rows(
+        "int8_stream_matmul", b5, "sd_v1 stream W8 UNet call, batch 2",
+        check, designs) + _stream_rows(
+        "int4_stream_matmul", b6, "sd_v1 stream W4 UNet call, batch 2",
+        check, designs)
 
 
 def phase_int8_cli(task, out: Path, setup: dict, check: Checks) -> dict:
@@ -2920,6 +3086,21 @@ class QuantRecorder:
         self.mod.int8_conv2d, self.mod.int8_dense = self.real
 
 
+def _within_one_bucket(card: "QuantRecorder", cpu: "QuantRecorder"):
+    """(every site of the two runs paired and each int8 activation of the
+    card's within one bucket beyond its input's drift of the CPU's, the
+    int8 values apart, the int8 values)."""
+    ok = len(card.rec) == len(cpu.rec) > 0
+    flips = total = 0
+    for (xg, qg, delta), (xr, qr, _) in zip(card.rec, cpu.rec):
+        dq = (qg.int() - qr.int()).abs()
+        ok &= xg.shape == xr.shape and bool(
+            (dq <= (xg - xr).abs() / delta + 1 + 1e-5).all())
+        flips += int((dq > 0).sum())
+        total += dq.numel()
+    return ok, flips, total
+
+
 def phase_int8_card_vs_cpu(task, out: Path, setup: dict,
                            check: Checks) -> dict:
     """One int8 step at batch 2: the card's bf16 and f32 carriers against
@@ -2955,14 +3136,7 @@ def phase_int8_card_vs_cpu(task, out: Path, setup: dict,
         return float(torch.linalg.vector_norm(a - b)
                      / torch.linalg.vector_norm(b))
 
-    sites_ok = len(rec_card.rec) == len(rec_cpu.rec) > 0
-    flips = total = 0
-    for (xg, qg, delta), (xr, qr, _) in zip(rec_card.rec, rec_cpu.rec):
-        dq = (qg.int() - qr.int()).abs()
-        sites_ok &= xg.shape == xr.shape and bool(
-            (dq <= (xg - xr).abs() / delta + 1 + 1e-5).all())
-        flips += int((dq > 0).sum())
-        total += dq.numel()
+    sites_ok, flips, total = _within_one_bucket(rec_card, rec_cpu)
     first_exact = sites_ok and bool(torch.equal(rec_card.rec[0][1],
                                                 rec_cpu.rec[0][1]))
     row = {"phase": "int8_card_vs_cpu", "batch": 2,
@@ -2997,18 +3171,10 @@ def phase_sd_stream_cli(task, work: Path, spy: dict, st: dict,
     """`cli sample --engine stream --stream-convs` at W4 (PLMS-50) and W8
     (PLMS-5), batch 1 with CFG; launch counts against the spies."""
     from qdiffusion_torch import cli
-    from qdiffusion_torch.ops.flash_attention import flash_attention
-    from qdiffusion_torch.ops.flash_streaming import \
-        streaming_flash_attention
-    from qdiffusion_torch.ops.groupnorm import fused_group_norm
-    from qdiffusion_torch.ops.int4_matmul import int4_stream_matmul
-    from qdiffusion_torch.ops.int8_matmul import int8_stream_matmul
 
-    counters = {"group_norm": fused_group_norm,
-                "flash_attention": flash_attention,
-                "flash_streaming": streaming_flash_attention,
-                "int4_stream_matmul": int4_stream_matmul,
-                "int8_stream_matmul": int8_stream_matmul}
+    counters = _kernel_counters("group_norm", "flash_attention",
+                                "flash_streaming", "int4_stream_matmul",
+                                "int8_stream_matmul")
     out = {}
     for wbits, steps, n in ((4, SD_STEPS, STREAM_N_W4), (8, 5, STREAM_N)):
         batches = n // STREAM_BATCH
@@ -3078,6 +3244,733 @@ def phase_int8_profile(setup: dict, out: Path) -> dict:
     return row
 
 
+# -- the LSUN latent-diffusion family (beds LDM-4 + VQ-f4, churches LDM-8
+#    + KL-f8) through every engine, and the beds W4A8 calibration ----------
+
+def lsun_spy() -> Spy:
+    """Every kernel-wrapper call of a latent sampling run, in call order:
+    B1 at both its call sites, the blockwise dispatch's B2 / B3, the int8
+    engine's B4, the stream engine's B6 / B5 (and each conv it streams,
+    as (input shape, kernel, stride)), with the markers "forward" (an
+    LDMUNet call begins) and "decode" (a first-stage decode begins)."""
+    import qdiffusion_torch.models.unet_ldm as unet_ldm
+    import qdiffusion_torch.nn as qnn
+    import qdiffusion_torch.ops.attention as att
+    import qdiffusion_torch.ops.int8 as int8
+    import qdiffusion_torch.ops.qlayers as ql
+    from qdiffusion_torch.pipelines import LatentDiffusionPipeline
+
+    def record(a, kw):
+        if isinstance(a[0], dict):  # _stream_conv2d(packed, x): a site
+            return (tuple(a[1].shape), tuple(a[0]["kshape"]),
+                    kw.get("stride", 1))
+        return tuple(a[0].shape) if isinstance(a[0], torch.Tensor) else None
+
+    return Spy([(qnn, "fused_group_norm"), (unet_ldm, "fused_group_norm"),
+                (att, "flash_attention"), (att, "streaming_flash_attention"),
+                (int8, "int8_conv"), (ql, "int4_dense_stream"),
+                (ql, "int8_dense_stream"), (ql, "_stream_conv2d"),
+                (unet_ldm.LDMUNet, "forward"),
+                (LatentDiffusionPipeline, "decode")], record)
+
+
+# wrapper (as the spy names it) -> its kernel's launch counter
+LSUN_WRAPPERS = {"fused_group_norm": "group_norm",
+                 "flash_attention": "flash_attention",
+                 "streaming_flash_attention": "flash_streaming",
+                 "int8_conv": "int8_conv",
+                 "int4_dense_stream": "int4_stream_matmul",
+                 "int8_dense_stream": "int8_stream_matmul"}
+
+
+def _spied_cli(argv: list, tag: str, unet_calls: int, decodes: int,
+               check: Checks) -> tuple:
+    """`cli.main(argv)` under `lsun_spy`, with every kernel's launch count
+    set to 0 just before and read just after. The spy's calls split at
+    its markers into UNet calls and decodes: there must be `unet_calls`
+    and `decodes` of them, each UNet call making the same wrapper calls
+    as the first (and each decode as the first decode), and each kernel's
+    launches must equal its wrapper's calls. Returns (the CLI's result,
+    {launches, per UNet call, per decode, B2 sites of a call})."""
+    from qdiffusion_torch import cli
+
+    counters = _kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    counters["flash_attention"].launches_sm_q = 0
+    with lsun_spy() as spy:
+        res = cli.main(argv)
+    launches = {k: f.launches for k, f in counters.items()}
+    launches["flash_attention_sm_q"] = \
+        counters["flash_attention"].launches_sm_q
+    segs, pre = [], []
+    for name, rec in spy.seen:
+        if name in ("forward", "decode"):
+            segs.append(("unet" if name == "forward" else "decode", []))
+        else:
+            (segs[-1][1] if segs else pre).append((name, rec))
+
+    def count(items):
+        out = dict.fromkeys(counters, 0)
+        for name, _ in items:
+            if name in LSUN_WRAPPERS:
+                out[LSUN_WRAPPERS[name]] += 1
+        return out
+
+    unet = [count(s) for k, s in segs if k == "unet"]
+    dec = [count(s) for k, s in segs if k == "decode"]
+    zero = dict.fromkeys(counters, 0)
+    per_call, per_dec = (unet or [zero])[0], (dec or [zero])[0]
+    check(not pre, f"{tag}: {len(pre)} kernel calls before the first UNet "
+                   "call")
+    check(len(unet) == unet_calls and len(dec) == decodes,
+          f"{tag}: {len(unet)} UNet calls and {len(dec)} decodes, expected "
+          f"{unet_calls} and {decodes}")
+    check(all(c == per_call for c in unet) and all(c == per_dec
+                                                   for c in dec),
+          f"{tag}: UNet calls or decodes with different kernel calls")
+    want = {k: len(unet) * per_call[k] + len(dec) * per_dec[k]
+            for k in counters}
+    check({k: launches[k] for k in counters} == want,
+          f"{tag}: launches {launches}, the spies count {want}")
+    first = next((s for k, s in segs if k == "unet"), [])
+    b2 = [r for n, r in first if n == "flash_attention"]
+    streamed = [r for n, r in first if n == "_stream_conv2d"]
+    return res, {"launches": launches, "per_unet_call": per_call,
+                 "per_decode": per_dec, "unet_calls": len(unet),
+                 "decodes": len(dec),
+                 "flash_sites_per_call": sorted(
+                     {str(r): b2.count(r) for r in b2}.items()),
+                 "streamed_convs_per_call": sorted(
+                     {str(r): streamed.count(r) for r in streamed}.items())}
+
+
+LSUN = ("lsun_beds256", "lsun_churches256")
+LSUN_BATCH = 8  # fold: the JAX package's headline batch
+# (scripts/throughput_headline.py:37), two batches, the second timed
+LSUN_SIM_STEPS = LSUN_INT8_STEPS = 5  # DDIM-5 (the presets: 200, 400)
+LSUN_STREAM_STEPS = 20  # batch-1 stream: DDIM-20
+# engine -> (flags of `cli sample`, qstate file, n, batch, --timesteps;
+# None runs the preset's steps)
+LSUN_RUNS = {
+    "fold": (("--weight-bit", "4", "--engine", "fold", "--dtype",
+              "bfloat16"), "w4", 2 * LSUN_BATCH, LSUN_BATCH, None),
+    "sim": (("--weight-bit", "8", "--quant-act", "--engine", "sim"), "w8a8",
+            8, 4, LSUN_SIM_STEPS),
+    "int8": (("--weight-bit", "4", "--quant-act", "--split", "--engine",
+              "int8"), "w4a8", 8, 4, LSUN_INT8_STEPS),
+    "stream": (("--weight-bit", "4", "--engine", "stream",
+                "--stream-convs"), "w4", 2, 1, LSUN_STREAM_STEPS)}
+# (QuantFlags, act init) of each qstate file, as `calibrate` would build
+# the model it calibrates: --quant-act builds the act-quant partition
+LSUN_QSTATES = {"w4": (dict(weight_bit=4), False),
+                "w8a8": (dict(weight_bit=8, quant_act=True, a_min_max=True),
+                         True),
+                "w4a8": (dict(weight_bit=4, quant_act=True, a_min_max=True,
+                              split=True), True)}
+VQ_TIE = 1e-4  # an f32 code that flips: the two distances within 1e-4 of
+# |z|^2 + |e|^2, the size of the terms whose rounding they carry
+VQ_TIE_BF16 = 2.0 ** -6  # the same for bf16 distances: a few bf16 ulps
+
+
+def _ddim_calls(task, steps=None) -> int:
+    """Entries of the preset's DDIM table at `steps` (default the
+    preset's): one UNet call each. Churches' 400 give 500 (the
+    reference's stride 1000 // 400 = 2)."""
+    from qdiffusion_torch.schedules import make_ddim_timesteps
+
+    return len(make_ddim_timesteps(task.sampler.skip_type,
+                                   steps or task.sampler.timesteps,
+                                   task.schedule.num_timesteps))
+
+
+def _bsc(shapes: list) -> list:
+    """Channel-last GroupNorm input shapes as (B, S, C), the three numbers
+    B1's plan and kernels read: an NHWC slab and the (B, T, C) tokens of
+    an AttentionBlock's norm of the same size are one shape."""
+    return [(s[0], int(np.prod(s[1:-1])), s[-1]) for s in shapes]
+
+
+def phase_lsun_spy(task, check: Checks) -> dict:
+    """One bf16 UNet call at batch LSUN_BATCH and one decode of it, seeded
+    weights, with every B1 call and blockwise dispatch recorded: the
+    shapes the kernel phases hold B1, B2 and B3 at. Then one stream W4
+    UNet call at batch 1 (f32, --stream-convs; 'mse' weights of the UNet
+    the CLI draws), recording B6's (M, K, N) per call for `probe_designs`
+    and the int-kernel phase, with every B6 call also run by its plain
+    version on the CPU on a copy of its own inputs (STREAM_REL)."""
+    from qdiffusion_torch.calib.engine import init_weight_qstate
+    from qdiffusion_torch.deploy import make_quantized_step
+    from qdiffusion_torch.models.vae import VAE
+
+    model = _sd_unet(task, torch.bfloat16, weight_bit=4)
+    model.load_state_dict(model.init_params(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device="cuda").manual_seed(0)
+    s = task.latent_size
+    x = torch.randn((LSUN_BATCH, s, s, task.latent_channels), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    t = torch.randint(1, 1000, (LSUN_BATCH,), generator=g,
+                      device="cuda").float()
+    with gn_spy() as gn, attn_spy() as att, torch.no_grad():
+        eps = model(x, t)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(eps).all()), f"{task.name} spy: UNet call "
+                                           "not finite")
+    del model, eps
+    vae = VAE(task.vae).to(torch.bfloat16)
+    vae.load_state_dict(vae.init_params(1))
+    vae_params = sum(p.numel() for p in vae.parameters())
+    with gn_spy() as gn_dec, attn_spy() as att_dec, torch.no_grad():
+        img = vae.decode(x / task.scale_factor)
+    torch.cuda.synchronize()
+    check(tuple(img.shape) == (LSUN_BATCH, 256, 256, 3)
+          and bool(torch.isfinite(img).all()), f"{task.name} spy: decode")
+    del vae, img
+    model = _lsun_unet(task, "cuda", "w4")
+    step = make_quantized_step(model, init_weight_qstate(model),
+                               engine="stream", stream_convs=True)
+    with stream_site_check() as sites, stream_spy() as st, torch.no_grad():
+        eps = step(x[:1].float(), t[:1])
+    torch.cuda.synchronize()
+    b6 = _calls(st.seen, "int4_dense_stream")
+    worst = max(sites.errs, key=lambda e: e[1], default=((), float("inf")))
+    check(bool(torch.isfinite(eps).all()) and b6
+          and not _calls(st.seen, "int8_dense_stream"),
+          f"{task.name} spy: stream W4 call, {len(b6)} B6 calls")
+    check(len(sites.errs) == len(b6) and worst[1] <= STREAM_REL,
+          f"{task.name} stream W4 per site: {len(sites.errs)} sites, "
+          f"largest rel err {worst[1]} at {worst[0]} (limit {STREAM_REL})")
+    del model, step, eps
+    torch.cuda.empty_cache()
+    row = {"phase": "lsun_spy", "task": task.name, "unet_params": n_params,
+           "vae_params": vae_params, "batch": LSUN_BATCH,
+           "unet_attention": [(n, r[0]) for n, r in att.seen],
+           "decode_attention": [(n, r[0]) for n, r in att_dec.seen],
+           "unet_gn_shapes": [s for _, s in gn.seen],
+           "decode_gn_shapes": [s for _, s in gn_dec.seen],
+           "stream_sites": {"sites": len(sites.errs),
+                            "max_rel_err": worst[1],
+                            "worst_site": list(worst[0]),
+                            "tolerance": f"{STREAM_REL} of the site's "
+                                         "largest output"},
+           "streamed_convs": len(_calls(st.seen, "_stream_conv2d")),
+           "b6_shapes": b6}
+    # beds: 14 heads of 32 at 32x32 (5 sites); churches: 8 heads of 24 at
+    # 32x32 (5); below 1024 tokens the blocks materialize
+    want = {"lsun_beds256": ((LSUN_BATCH, 1024, 14, 32),
+                             ("streaming_flash_attention",
+                              (LSUN_BATCH, 4096, 1, 512))),
+            "lsun_churches256": ((LSUN_BATCH, 1024, 8, 24),
+                                 ("flash_attention",
+                                  (LSUN_BATCH, 1024, 1, 512)))}[task.name]
+    check(row["unet_attention"] == [("flash_attention", want[0])] * 5,
+          f"{task.name} spy: UNet attention {row['unet_attention']}")
+    check(row["decode_attention"] == [want[1]],
+          f"{task.name} spy: decode attention {row['decode_attention']}")
+    _emit({k: v for k, v in row.items() if not k.endswith("shapes")})
+    return row
+
+
+def phase_lsun_files(task, work: Path, check: Checks) -> dict:
+    """The seeded VAE npz file in the JAX format and the three qstates of
+    LSUN_QSTATES: W4 'mse' weights; W8A8 and W4A8 --split of the
+    partitioned model, acts from 4 seeded latents ('max', the --a-min-max
+    init of the LSUN calibration). The UNet is the one `cli` builds
+    without --ckpt (init_params(0) on the card), so no UNet file is
+    written or read."""
+    from qdiffusion_torch import cli
+    from qdiffusion_torch.calib.engine import init_act_qstate, \
+        init_weight_qstate
+    from qdiffusion_torch.config import QuantFlags
+    from qdiffusion_torch.convert import to_jax_params
+    from qdiffusion_torch.models.vae import VAE
+    from qdiffusion_torch.utils.checkpoints import save_nested, save_qstate
+
+    d = work / task.name
+    d.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    vae = VAE(task.vae)
+    vae.load_state_dict(vae.init_params(1))
+    save_nested(d / "vae.npz", to_jax_params(vae.state_dict()))
+    del vae
+    g = torch.Generator(device="cuda").manual_seed(2)
+    s = task.latent_size
+    xs = torch.randn((4, s, s, task.latent_channels), generator=g,
+                     device="cuda")
+    ts = torch.tensor([50.0, 300.0, 600.0, 950.0], device="cuda")
+    init_s = {}
+    for key, (flags, acts) in LSUN_QSTATES.items():
+        model, _ = cli.build_model_and_pipeline(task, QuantFlags(**flags),
+                                                "cuda", act_quant=acts)
+        model.load_state_dict(model.init_params(0))
+        t1 = time.perf_counter()
+        q = init_weight_qstate(model)
+        if acts:
+            q = init_act_qstate(model, q, xs, ts)
+        torch.cuda.synchronize()
+        init_s[key] = time.perf_counter() - t1
+        save_qstate(d / f"{key}.npz", q)
+        if key == "w4a8":
+            parts = [n for n in q if ".attention." in n]
+            check(len(parts) == 2 * sum(1 for n in q if n.endswith(
+                ".attention.smv_matmul")) > 0,
+                f"{task.name} W4A8: partition sites {parts[:4]}")
+        del model, q
+    torch.cuda.empty_cache()
+    row = {"phase": "lsun_files", "task": task.name,
+           "seconds": time.perf_counter() - t0, "qstate_init_seconds": init_s,
+           "mib": {f.name: f.stat().st_size / 2**20
+                   for f in sorted(d.glob("*.npz"))}}
+    _emit(row)
+    return row
+
+
+def _lsun_sample(task, work: Path, engine: str, check: Checks, *,
+                 flags=None, qstate: Path = None, n=None, batch=None,
+                 steps=None, out: str = None) -> dict:
+    """`cli sample --task <LSUN preset>` through `engine` under
+    `_spied_cli` (LSUN_RUNS' flags, qstate, n, batch and steps unless
+    given): uint8 output of the right shape, finite, the sampler's table
+    length in UNet calls per batch; img/s and ms per UNet call of the
+    last batch (the first builds and warms up)."""
+    flags0, qfile, n0, b0, steps0 = LSUN_RUNS[engine]
+    flags, n, batch = flags or flags0, n or n0, batch or b0
+    steps = steps or steps0
+    d = work / task.name
+    qstate = qstate or d / f"{qfile}.npz"
+    calls = _ddim_calls(task, steps)
+    batches = -(-n // batch)
+    tag = f"{task.name} {engine}"
+    res, spied = _spied_cli(
+        ["sample", "--task", task.name,
+         "--vae-ckpt", str(d / "vae.npz"), "--qstate", str(qstate), *flags,
+         "--n", str(n), "--batch", str(batch),
+         *(("--timesteps", str(steps)) if steps else ()),
+         "--npz-out", str(d / f"{out or engine}.npz"), "--device",
+         "cuda"],
+        tag, calls * batches, batches, check)
+    with np.load(res["path"]) as f:
+        imgs = f["arr_0"]
+    check(imgs.shape == (n, 256, 256, 3) and imgs.dtype == np.uint8,
+          f"{tag}: npz {imgs.shape} {imgs.dtype}")
+    check(res["nonfinite"] == 0, f"{tag}: {res['nonfinite']} non-finite")
+    check(res["sampler"] == "ddim" and res["model_calls"] == [calls]
+          * batches, f"{tag}: {res['sampler']} with UNet calls "
+                     f"{res['model_calls']}, the table has {calls}")
+    secs, dec_s = res["batch_seconds"], res["decode_seconds"]
+    row = {"phase": "lsun_sample", "task": task.name, "engine": engine,
+           "flags": list(flags), "n": n, "batch": batch,
+           "steps": steps or task.sampler.timesteps, "table_length": calls,
+           "eta": task.sampler.eta, "batch_seconds": secs,
+           "decode_seconds": dec_s, "img_per_s": batch / secs[-1],
+           "ms_per_unet_call": (secs[-1] - dec_s[-1]) / calls * 1e3,
+           "decode_ms": dec_s[-1] * 1e3, **spied,
+           "image_mean": float(imgs.mean()), "image_std": float(imgs.std())}
+    _emit(row)
+    return row
+
+
+def _lsun_unet(task, dev: str, key: str):
+    """The UNet of `cli sample` for qstate `key` on `dev`, with the weights
+    the CLI draws without --ckpt: init_params(0) on the card (a CPU model
+    gets a copy; a CPU generator draws other numbers)."""
+    from qdiffusion_torch import cli
+    from qdiffusion_torch.config import QuantFlags
+
+    flags, acts = LSUN_QSTATES[key]
+
+    def build(where):
+        return cli.build_model_and_pipeline(task, QuantFlags(**flags), where,
+                                            act_quant=acts)[0]
+
+    card = build("cuda")
+    card.load_state_dict(card.init_params(0))
+    if dev == "cuda":
+        return card
+    model = build(dev)
+    model.load_state_dict({k: v.cpu() for k, v in
+                           card.state_dict().items()})
+    del card
+    torch.cuda.empty_cache()
+    return model
+
+
+def _lsun_card_vs_cpu(task, work: Path, check: Checks) -> dict:
+    """One full-width fold W4 UNet call at batch 1, card bf16 against CPU
+    f32, and one int8 W4A8 --split call at batch 1 and half the latent
+    size on the card's and the CPU's f32 carriers: every int8 activation
+    within one bucket beyond its input's drift, every B4 call of the card
+    bit for bit against the plain composition on its own input."""
+    from qdiffusion_torch.deploy import fold_weights, make_quantized_step
+    from qdiffusion_torch.utils.checkpoints import load_qstate
+
+    d = work / task.name
+    s, c = task.latent_size, task.latent_channels
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((1, s, s, c)).astype(
+        np.float32))
+    t = torch.tensor([500.0])
+
+    def build(dev):
+        model = _lsun_unet(task, dev, "w4")
+        model.load_state_dict(fold_weights(model, load_qstate(
+            d / "w4.npz", dev)))
+        return model
+
+    t0 = time.perf_counter()
+    fold = {"batch": 1, **_fold_card_vs_cpu(task.name, build, (x, t),
+                                            check)}
+    secs = {"fold": time.perf_counter() - t0}
+    # half the latent size: every int8 site at a quarter of the CPU time
+    xh = torch.from_numpy(rng.standard_normal((1, s // 2, s // 2, c)).astype(
+        np.float32))
+    recs = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        model = _lsun_unet(task, dev, "w4a8")
+        step = make_quantized_step(model, load_qstate(d / "w4a8.npz", dev),
+                                   engine="int8",
+                                   carrier_dtype=torch.float32)
+        with QuantRecorder() as recs[dev]:
+            out = step(xh.to(dev), t.to(dev))
+        check(bool(torch.isfinite(out).all()), f"{task.name} int8 f32 call "
+                                               f"on {dev}")
+        del model, step, out
+        secs[f"int8_{dev}"] = time.perf_counter() - t0
+    rec_cpu, rec_card = recs["cpu"], recs["cuda"]
+    sites_ok, flips, total = _within_one_bucket(rec_card, rec_cpu)
+    check(sites_ok, f"{task.name} int8 card vs CPU: {len(rec_card.rec)} vs "
+                    f"{len(rec_cpu.rec)} quantized sites, each within one "
+                    f"bucket: {sites_ok}")
+    check(rec_card.plain_sites > 0
+          and rec_card.plain_equal == rec_card.plain_sites,
+          f"{task.name} int8: {rec_card.plain_equal} of "
+          f"{rec_card.plain_sites} B4 calls bit-equal to the plain "
+          "composition")
+    torch.cuda.empty_cache()
+    return {"fold": fold,
+            "int8": {"batch": 1, "latent": s // 2,
+                     "quantized_sites": len(rec_card.rec),
+                     "sites_within_one_bucket": sites_ok,
+                     "int8_values_apart": flips, "int8_values": total,
+                     "b4_calls_vs_plain": [rec_card.plain_sites,
+                                           rec_card.plain_equal]},
+            "seconds": secs}
+
+
+def _vq_check(task, work: Path, check: Checks) -> dict:
+    """The VQ codes of LSUN_BATCH seeded latents on the card against the
+    CPU's from the same codebook (the seeded VAE file): f32 on both, and
+    the card's bf16 carrier (the fold engine decodes in bf16) against the
+    CPU in bf16 and in f32. Every f32 flip must be a near-tie: its two
+    distances, recomputed in f64, within VQ_TIE of |z|^2 + |e|^2 (bf16:
+    VQ_TIE_BF16)."""
+    from qdiffusion_torch.cli import load_nested_params
+    from qdiffusion_torch.models.vae import VAE
+
+    g = torch.Generator().manual_seed(11)
+    s = task.latent_size
+    z = torch.randn((LSUN_BATCH, task.latent_channels, s, s), generator=g)
+    sd = load_nested_params(work / task.name / "vae.npz", "--vae-ckpt")
+    codes = {}
+    for dev in ("cpu", "cuda"):
+        vae = VAE(task.vae, device=dev)
+        vae.load_state_dict(sd)
+        for dtype in (torch.float32, torch.bfloat16):
+            with torch.no_grad():
+                codes[(dev, dtype)] = vae.to(dtype).vq_codes(
+                    z.to(dev, dtype).contiguous(
+                        memory_format=torch.channels_last)).cpu()
+        del vae
+    emb = sd["quantize.embedding.weight"].double()
+    flat = z.permute(0, 2, 3, 1).reshape(-1, z.shape[1]).double()
+
+    def flipped(a, b, tie=None):
+        at = (a != b).nonzero().flatten()
+        ea, eb = emb[a[at]], emb[b[at]]
+        x = flat[at]
+        da = ((x - ea) ** 2).sum(1)
+        db = ((x - eb) ** 2).sum(1)
+        size = (x ** 2).sum(1) + torch.maximum((ea ** 2).sum(1),
+                                               (eb ** 2).sum(1))
+        gap = ((da - db).abs() / size)
+        out = {"flipped": int(at.numel()), "share": at.numel() / a.numel(),
+               "max_gap": float(gap.max()) if at.numel() else 0.0}
+        if tie is not None:
+            out["near_ties"] = bool((gap <= tie).all())
+        return out
+
+    f32 = flipped(codes[("cuda", torch.float32)],
+                  codes[("cpu", torch.float32)], VQ_TIE)
+    bf16 = flipped(codes[("cuda", torch.bfloat16)],
+                   codes[("cpu", torch.bfloat16)], VQ_TIE_BF16)
+    carrier = flipped(codes[("cuda", torch.bfloat16)],
+                      codes[("cpu", torch.float32)])
+    check(f32["near_ties"], f"{task.name} VQ codes f32 card vs CPU: "
+                            f"{f32['flipped']} flips, gap {f32['max_gap']}"
+                            f" over {VQ_TIE}")
+    check(bf16["near_ties"], f"{task.name} VQ codes bf16 card vs CPU: "
+                             f"{bf16['flipped']} flips, gap "
+                             f"{bf16['max_gap']} over {VQ_TIE_BF16}")
+    return {"codes": int(flat.shape[0]), "codebook": list(emb.shape),
+            "f32_card_vs_cpu": f32, "bf16_card_vs_cpu": bf16,
+            "bf16_card_vs_cpu_f32": carrier,
+            "distinct_codes_f32": int(codes[("cpu", torch.float32)]
+                                      .unique().numel())}
+
+
+def phase_lsun_int_kernels(task, work: Path, b6: list, per_call: dict,
+                           check: Checks, designs: dict) -> list:
+    """B4 and B6 at the preset's path shapes, each against its plain
+    version and timed as at the CIFAR and SD sites: B4 at every distinct
+    site of one int8 W4A8 --split UNet call at the CLI's batch and full
+    latents (a B4Sites spy's inputs; `_b4_site`: bit for bit, int32
+    products exact), B6 at every distinct (M, K, N) of the stream W4 call
+    that `phase_lsun_spy` recorded (`b6`). The spies' calls per UNet call
+    must equal the CLI runs' launches per call (`per_call`, by engine)."""
+    from qdiffusion_torch.deploy import make_quantized_step
+    from qdiffusion_torch.ops.int8_conv import int8_conv
+    from qdiffusion_torch.utils.checkpoints import load_qstate
+
+    batch = LSUN_RUNS["int8"][3]
+    s, c = task.latent_size, task.latent_channels
+    model = _lsun_unet(task, "cuda", "w4a8")
+    step = make_quantized_step(model, load_qstate(
+        work / task.name / "w4a8.npz", "cuda"), engine="int8")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn((batch, s, s, c), generator=g, device="cuda")
+    t = torch.full((batch,), 500.0, device="cuda")
+    before = int8_conv.launches
+    with B4Sites() as spy, torch.no_grad():
+        eps = step(x, t)
+    torch.cuda.synchronize()
+    launched = int8_conv.launches - before
+    sites = [k for _, k in spy.seen]
+    want = per_call["int8"]["int8_conv"]
+    check(bool(torch.isfinite(eps).all()) and len(sites) == launched == want,
+          f"{task.name} int8 call: {len(sites)} B4 sites, {launched} "
+          f"launches, the CLI's {want} per call")
+    del model, step, eps
+    torch.cuda.empty_cache()
+    rows = phase_b4_sites(sites, spy.inputs,
+                          f"{task.name} W4A8 int8 UNet call, batch {batch}",
+                          check)
+    del spy
+    want = per_call["stream"]["int4_stream_matmul"]
+    check(len(b6) == want, f"{task.name} stream: {len(b6)} B6 calls in the "
+                           f"spied call, the CLI's {want} per call")
+    return rows + _stream_rows("int4_stream_matmul", b6,
+                               f"{task.name} stream W4 UNet call, batch 1",
+                               check, designs)
+
+
+def phase_lsun(task, work: Path, smi: str, spied: dict, check: Checks,
+               designs: dict) -> dict:
+    """An LSUN preset through `cli sample` on every engine (LSUN_RUNS),
+    then card against CPU (fold, int8 per site), for a VQ first stage its
+    codes, and B4 / B6 at the path's shapes (`spied`: the preset's
+    `phase_lsun_spy` row)."""
+    t0 = time.perf_counter()
+    files = phase_lsun_files(task, work, check)
+    runs = {engine: _lsun_sample(task, work, engine, check)
+            for engine in LSUN_RUNS}
+    fold, st = runs["fold"]["per_unet_call"], runs["stream"]
+    check(fold["flash_attention"] == 5 and fold["int8_conv"] == 0,
+          f"{task.name} fold: per call {fold}")
+    check(runs["sim"]["per_unet_call"]["flash_attention"] == 0,
+          f"{task.name} sim: B2 in a partitioned call (it materializes)")
+    check(runs["int8"]["per_unet_call"]["int8_conv"] > 0
+          and runs["int8"]["per_unet_call"]["flash_attention"] == 0,
+          f"{task.name} int8: per call {runs['int8']['per_unet_call']}")
+    check(st["per_unet_call"]["int4_stream_matmul"] > 0
+          and st["per_unet_call"]["flash_attention"] == 5,
+          f"{task.name} stream: per call {st['per_unet_call']}")
+    card_cpu = _lsun_card_vs_cpu(task, work, check)
+    vq = _vq_check(task, work, check) if task.vae.n_embed else None
+    ints = phase_lsun_int_kernels(
+        task, work, spied["b6_shapes"],
+        {e: r["per_unet_call"] for e, r in runs.items()}, check, designs)
+    row = {"phase": "lsun", "task": task.name, "nvidia_smi": smi,
+           "reduced": {"weights": "seeded (the LSUN checkpoints are not "
+                       "in the repo)",
+                       "steps": {e: r["steps"] for e, r in runs.items()}},
+           "files": files, "card_vs_cpu": card_cpu, "vq": vq,
+           "img_per_s": {e: r["img_per_s"] for e, r in runs.items()},
+           "ms_per_unet_call": {e: r["ms_per_unet_call"]
+                                for e, r in runs.items()},
+           "launches": {e: r["launches"] for e, r in runs.items()},
+           "seconds": time.perf_counter() - t0}
+    _emit(row)
+    return {**row, "runs": runs, "int_kernels": ints}
+
+
+def phase_lsun_profile(task, work: Path, out: Path) -> dict:
+    """torch.profiler over three UNet calls of each engine at its LSUN_RUNS
+    batch: fold W4 bf16 (8), int8 W4A8 --split (4), stream W4 f32 with
+    the convs the cost model streams (1); and three bf16 decodes at 8."""
+    from qdiffusion_torch import cli
+    from qdiffusion_torch.deploy import make_quantized_step
+    from qdiffusion_torch.utils.checkpoints import load_qstate
+
+    d = work / task.name
+    s, c = task.latent_size, task.latent_channels
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows = {}
+    for engine, key, kw in (("fold", "w4", dict(dtype=torch.bfloat16)),
+                            ("int8", "w4a8", {}),
+                            ("stream", "w4", dict(stream_convs=True))):
+        batch = LSUN_RUNS[engine][3]
+        model = _lsun_unet(task, "cuda", key)
+        step = make_quantized_step(model, load_qstate(d / f"{key}.npz",
+                                                      "cuda"),
+                                   engine=engine, **kw)
+        x = torch.randn((batch, s, s, c), generator=g, device="cuda")
+        x = x.to(kw.get("dtype", torch.float32))
+        t = torch.full((batch,), 500.0, device="cuda")
+        rows[engine] = profile_breakdown(
+            lambda: step(x, t), 3,
+            out / f"{task.name}_{engine}_trace.json",
+            f"{task.name} {engine} UNet call, batch {batch}")
+        del model, step
+        torch.cuda.empty_cache()
+    _, pipe = cli.build_model_and_pipeline(task, None, "cuda")
+    pipe.vae.load_state_dict(cli.load_nested_params(d / "vae.npz",
+                                                    "--vae-ckpt"))
+    pipe.vae.to(torch.bfloat16)
+    z = torch.randn((LSUN_BATCH, s, s, c), generator=g, device="cuda")
+    rows["decode"] = profile_breakdown(
+        lambda: pipe.decode(z, torch.bfloat16), 3, None,
+        f"{task.name} bf16 decode, batch {LSUN_BATCH}")
+    del pipe
+    torch.cuda.empty_cache()
+    row = {"phase": "lsun_profile", "task": task.name, **rows}
+    _emit(row)
+    return row
+
+
+# calib_lsun: the beds W4A8 calibration in the reference's LSUN form (one
+# `calibrate --quant-act` on the partitioned model: the weight pass, then
+# the act pass with the 'max' act init of --a-min-max and the EMA of
+# --running-stat), cut in scale only: a 4-image DDIM-200 (eta 1)
+# trajectory, 4 samples at each of the 10 steps cali_st 10 slices (40
+# rows; reference 256 x 20), LC_ITERS iterations a unit in each pass
+# (reference 20,000 and 5,000), batch LC_BATCH
+LC_N, LC_ST, LC_CALI_N, LC_BATCH = 4, 10, 4, 8
+LC_ITERS = 10
+LC_SAMPLE_STEPS = 5  # DDIM-5 samples of the qstate, sim and int8: two
+# batches of 1, the second timed
+
+
+def phase_calib_lsun(task, work: Path, smi: str, check: Checks) -> dict:
+    """make-cali-data --task lsun_beds256 --n 4 (DDIM-200 at eta 1, f32),
+    calibrate --weight-bit 4 --split --quant-act --a-min-max --running-stat
+    over every unit of both passes, then DDIM-5 samples of its qstate
+    through sim and int8. Spies time every part, count B1/B2/B3 in each
+    and hold every unit's block error after its reconstruction to 1.02x
+    its start's, the sums lower; B1/B2/B3 never launch inside a
+    reconstruction, B2/B3 never in a capture, the act init or the EMA
+    (the partition materializes the 14 x 1024^2 attention)."""
+    from qdiffusion_torch import cli
+
+    wc = work / "calib_lsun"
+    wc.mkdir(parents=True, exist_ok=True)
+    traj = wc / "traj.npz"
+    parts = _Parts()
+    steps = _ddim_calls(task)
+    t0 = time.perf_counter()
+    made, spied = _spied_cli(
+        ["make-cali-data", "--task", task.name, "--n", str(LC_N), "--out",
+         str(traj),
+         "--device", "cuda"], "calib_lsun trajectory", steps, 0, check)
+    parts.parts["trajectory"] = {"seconds": time.perf_counter() - t0,
+                                 "calls": 1, **spied["launches"]}
+    s = task.latent_size
+    check(made["shapes"] == {"xs": (steps, LC_N, s, s, 3),
+                             "ts": (steps, LC_N)},
+          f"calib_lsun trajectory {made['shapes']}")
+    check(spied["per_unet_call"]["flash_attention"] == 5,
+          f"calib_lsun trajectory: per call {spied['per_unet_call']}")
+
+    torch.cuda.reset_peak_memory_stats()
+    peaks = {}
+
+    def act_start():
+        peaks["weight"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+
+    with _CalibSpies(parts, LC_BATCH, on_act_start=act_start) as spies:
+        cal = parts("calibrate", cli.main, [
+            "calibrate", "--task", task.name, "--cali-data", str(traj), "--weight-bit", "4", "--split",
+            "--quant-act", "--a-min-max", "--running-stat",
+            "--cali-st", str(LC_ST), "--cali-n", str(LC_CALI_N),
+            "--cali-batch-size", str(LC_BATCH), "--act-init-batch",
+            str(LC_BATCH), "--cali-iters", str(LC_ITERS), "--cali-iters-a",
+            str(LC_ITERS), "--run-dir", str(wc / "run"), "--device",
+            "cuda"])[0]
+    peaks["act"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    check(cal["samples"] == LC_ST * LC_CALI_N,
+          f"calib_lsun: {cal['samples']} calibration rows")
+    model = _lsun_unet(task, "cpu", "w4a8")
+    units = [u.name for u in model.units]
+    weight_units = [u.name for u in model.units if u.layer_names]
+    del model
+    quality = _calib_checks("calib_lsun", parts, spies.units,
+                            {"weight": weight_units, "act": units}, check)
+
+    samples = {}
+    for engine in ("sim", "int8"):
+        samples[engine] = _lsun_sample(
+            task, work, engine, check, flags=(
+                "--weight-bit", "4", "--quant-act", "--split", "--engine",
+                engine), qstate=Path(cal["path"]), n=2, batch=1,
+            steps=LC_SAMPLE_STEPS, out=f"calib_{engine}")
+    # the path's launches: trajectory, calibrate (without the spies' own
+    # block-error forwards) and samples
+    p = parts.parts
+    path = {k: p["trajectory"][k] + p["calibrate"][k] - p["block_error"][k]
+            + sum(r["launches"][k] for r in samples.values())
+            for k in ("group_norm", "flash_attention", "flash_streaming")}
+    kinds = {}
+    for what, rows in spies.units.items():
+        for r in rows:
+            kinds.setdefault(f"{what}/{r['kind']}", []).append(
+                r["ms_per_iter"])
+    row = {"phase": "calib_lsun", "task": task.name, "nvidia_smi": smi,
+           "reduced": {"trajectory": f"{LC_N} images, DDIM-{steps} at eta "
+                       f"{task.sampler.eta}",
+                       "calibration samples": f"{LC_CALI_N} x {LC_ST} steps "
+                       "(reference 256 x 20)",
+                       "iterations per unit": f"{LC_ITERS} weight, "
+                       f"{LC_ITERS} act (reference 20000, 5000)",
+                       "batch": LC_BATCH,
+                       "samples": f"DDIM-{LC_SAMPLE_STEPS}, two batches "
+                                  "of 1"},
+           "samples_rows": cal["samples"], "units": len(units),
+           "weight_units": len(weight_units),
+           "seconds": {k: v["seconds"] for k, v in p.items()},
+           "calls": {k: v["calls"] for k, v in p.items()},
+           "launches": {k: {n: v.get(n, 0) for n in (
+               "group_norm", "flash_attention", "flash_streaming")}
+               for k, v in p.items()},
+           "peak_device_gb": peaks,
+           "ms_per_iter_by_kind": {k: {"median": float(np.median(v)),
+                                       "max": max(v), "units": len(v)}
+                                   for k, v in kinds.items()},
+           "quality": quality,
+           "samples": {e: {k: r[k] for k in (
+               "batch_seconds", "decode_seconds", "launches",
+               "per_unet_call", "image_mean", "image_std")}
+               for e, r in samples.items()},
+           "path_launches": path}
+    _emit(row)
+    for what, rows in spies.units.items():
+        for r in rows:
+            _emit({"phase": f"calib_lsun_{what}_unit", **r})
+    return row
+
+
 def _int_row(rows, name, replaces, launches, per):
     """A kernels-line row: per-call sums over the shapes of `name`."""
     sel = [r for r in rows if r["kernel"] == name]
@@ -3101,6 +3994,27 @@ def _int_row(rows, name, replaces, launches, per):
             else None,
             "bit_equal_relaunch": all(r["bit_equal_relaunch"] for r in sel)}
            if "design" in sel[0] else {})}
+
+
+def _lsun_int_summary(lsun: dict, name: str) -> dict:
+    """B4 or B6 at the LSUN paths' shapes for the kernels line: per-call
+    sums over the distinct sites of one int8 W4A8 UNet call at batch 4 or
+    one stream W4 call at batch 1 of each preset (`phase_lsun`'s rows)."""
+    out = {}
+    for task_name in LSUN:
+        sel = [x for x in lsun[task_name]["int_kernels"]
+               if x["kernel"] == name]
+        r = _int_row(sel, name, None, None, None)
+        out[sel[0]["where"]] = {
+            "sites": sum(x["per_call"] for x in sel),
+            **{k: r[k] for k in ("shapes", "max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")},
+            **({"cudnn_bf16_ms": sum(x["cudnn_bf16_ms"] * x["per_call"]
+                                     for x in sel),
+                "bit_equal_sites": sum(x["bit_equal"] and x["int32_exact"]
+                                       for x in sel)}
+               if name == "int8_conv" else {})}
+    return out
 
 
 def _gn_row(rows, where, per, launches):
@@ -3145,8 +4059,9 @@ def main(argv=None) -> int:
                         "the end")
     p.add_argument("--profile", action="store_true",
                    help="add torch.profiler breakdowns of a CIFAR fold "
-                        "step, an SD fold UNet call, a CIFAR int8 step and "
-                        "an SD stream W4 UNet call")
+                        "step, an SD fold UNet call, a CIFAR int8 step, "
+                        "an SD stream W4 UNet call and the LSUN presets' "
+                        "fold, int8 and stream calls and decodes")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3200,9 +4115,20 @@ def main(argv=None) -> int:
     sd = PRESETS["sd_v1"]
     spy = phase_sd_spy(sd, check)
     torch.cuda.empty_cache()
+    lsun_spy_rows = {name: phase_lsun_spy(PRESETS[name], check)
+                     for name in LSUN}
+    lsun_gn_bsc = {name: {key: _bsc(r[key]) for key in (
+        "unet_gn_shapes", "decode_gn_shapes")}
+        for name, r in lsun_spy_rows.items()}
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     designs = probe_designs(cifar_gn + spy["unet_gn_shapes"]
-                            + spy["decode_gn_shapes"])
+                            + spy["decode_gn_shapes"] + [
+                                s for r in lsun_gn_bsc.values()
+                                for v in r.values() for s in v], [
+                                ("int4_stream_matmul", m)
+                                for r in lsun_spy_rows.values()
+                                for m in r["b6_shapes"]])
     _emit({"phase": "designs", "probed": len(designs),
            "seconds": time.perf_counter() - t0})
 
@@ -3264,6 +4190,36 @@ def main(argv=None) -> int:
         for name in ("group_norm", "flash_attention", "flash_streaming"):
             check(row["launches"][name] > 0,
                   f"sd stream W{wbits}: {name} not launched")
+
+    # the LSUN latent-diffusion family, slice 11's paths: B1 and B2/B3 at
+    # their shapes, each preset through every engine, then the beds W4A8
+    # calibration
+    gn_lsun = []
+    for name, r in lsun_gn_bsc.items():
+        for key, where in (("unet_gn_shapes", "UNet call"),
+                           ("decode_gn_shapes", "decode")):
+            gn_lsun += phase_kernels(r[key], check, designs,
+                                     phase="gn_lsun",
+                                     where=f"{name} {where}",
+                                     time_dtypes=(torch.bfloat16,))
+    attn_lsun = phase_attn_kernels(
+        check, designs, LSUN_ATTN_CASES, path="lsun",
+        first_seed=len(ATTN_CASES),
+        f32_library={shape for _, shape, *_ in LSUN_ATTN_CASES})
+    lsun = {name: phase_lsun(PRESETS[name], work, smi, lsun_spy_rows[name],
+                             check, designs)
+            for name in LSUN}
+    lsun_prof = {name: phase_lsun_profile(PRESETS[name], work, out)
+                 for name in LSUN} if args.profile else None
+    torch.cuda.empty_cache()
+    calib_lsun = phase_calib_lsun(PRESETS["lsun_beds256"], work, smi, check)
+    torch.cuda.empty_cache()
+    lsun_paths = {f"{name}_{engine}": r["launches"] for name in LSUN
+                  for engine, r in lsun[name]["runs"].items()}
+    for k in ("group_norm", "flash_attention", "flash_streaming",
+              "int8_conv", "int4_stream_matmul"):
+        check(sum(v[k] for v in lsun_paths.values()) > 0,
+              f"lsun: {k} not launched on any LSUN path")
 
     # P, slice 4's path: the epilogue probe on B2's bf16 kernel
     p_rows = phase_flash_epilogue(check)
@@ -3358,6 +4314,43 @@ def main(argv=None) -> int:
             "sd_v1_calib": calib_sd["path_launches"][key],
             "sd_v1_stream_w4": sd_stream[4]["launches"][key],
             "sd_v1_stream_w8": sd_stream[8]["launches"][key]}
+    lsun_paths["lsun_beds256_calib"] = {
+        **calib_lsun["path_launches"],
+        **{k: sum(r["launches"][k] for r in calib_lsun["samples"].values())
+           for k in ("int8_conv", "int4_stream_matmul")}}
+    for row, key in ((kernels[0], "group_norm"),
+                     (kernels[1], "flash_attention"),
+                     (kernels[2], "flash_streaming"),
+                     (kernels[3], "int8_conv"),
+                     (kernels[5], "int4_stream_matmul")):
+        row.setdefault("launches_by_path", {}).update(
+            {p: v[key] for p, v in lsun_paths.items() if v[key]})
+    kernels[0]["lsun"] = {
+        r["where"]: {k: per_call_sum([x for x in gn_lsun
+                                      if x["where"] == r["where"]], k)
+                     for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        for r in gn_lsun}
+    for row, name, cases in (
+            (kernels[1], "flash_attention", {
+                "lsun_beds256 UNet call": (8, 1024, 14, 32),
+                "lsun_churches256 UNet call": (8, 1024, 8, 24),
+                "lsun_churches256 decode": (8, 1024, 1, 512)}),
+            (kernels[2], "flash_streaming", {
+                "lsun_beds256 decode": (8, 4096, 1, 512),
+                "S = 1024 (no path)": (8, 1024, 1, 512)})):
+        row["lsun"] = {}
+        for where, shape in cases.items():
+            r = next(x for x in attn_lsun if x["kernel"] == name
+                     and tuple(x["shape"]) == shape
+                     and x["dtype"] == "bfloat16" and not x["quant"])
+            n = max(r["per_call"], 1)
+            row["lsun"][where] = {
+                "shape": list(shape), "sites": r["per_call"],
+                "design": r["design"], "bound_by": r["bound_by"],
+                **{k: r[k] * n for k in ("ms", "plain_ms", "bound_ms",
+                                         "library_ms")}}
+    kernels[3]["lsun"] = _lsun_int_summary(lsun, "int8_conv")
+    kernels[5]["lsun"] = _lsun_int_summary(lsun, "int4_stream_matmul")
     report = {"device": device, "nvidia_smi": smi, "build": built,
               "ptxas": ptxas,
               "kernels": kernels, "kernel_shapes": rows, "gn_sd": gn_sd,
@@ -3374,6 +4367,11 @@ def main(argv=None) -> int:
               "int_kernels": ints, "int8_cli": int8_cli,
               "int8_card_vs_cpu": int8_cpu, "int8_profile": int8_prof,
               "sd_stream_cli": sd_stream, "flash_epilogue": p_rows,
+              "lsun_spy": {n: {k: v for k, v in r.items()
+                               if not k.endswith("shapes")}
+                           for n, r in lsun_spy_rows.items()},
+              "gn_lsun": gn_lsun, "attn_lsun": attn_lsun, "lsun": lsun,
+              "calib_lsun": calib_lsun, "lsun_profile": lsun_prof,
               "failed": check.failed,
               "launch_totals": {
                   "flash_attention": flash_attention.launches,

@@ -21,6 +21,19 @@ with --quant-act):
       --qstate w4.npz --weight-bit 4 --engine fold --dtype bfloat16 \\
       --n 8 --batch 4 --npz-out samples/
 
+  python -m qdiffusion_torch.cli sample --task lsun_beds256 \\
+      --ckpt unet.npz --vae-ckpt vq_f4.npz --qstate w4.npz \\
+      --weight-bit 4 --engine fold --dtype bfloat16 --n 16 --batch 8 \\
+      --npz-out samples/
+  python -m qdiffusion_torch.cli make-cali-data --task lsun_beds256 \\
+      --ckpt unet.npz --n 4 --out cali/beds_traj.npz
+  python -m qdiffusion_torch.cli calibrate --task lsun_beds256 \\
+      --ckpt unet.npz --cali-data cali/beds_traj.npz --weight-bit 4 \\
+      --split --quant-act --a-min-max --running-stat --run-dir logs/beds
+  python -m qdiffusion_torch.cli sample --task lsun_churches256 \\
+      --ckpt unet.npz --vae-ckpt kl_f8.npz --qstate w4a8.npz \\
+      --weight-bit 4 --quant-act --split --engine int8 --n 8 --batch 4
+
   python -m qdiffusion_torch.cli make-cali-data --task sd_v1 \\
       --ckpt unet.npz --clip-ckpt clip.npz --token-ids ids.npz --n 4 \\
       --out cali/sd_traj.npz
@@ -35,6 +48,11 @@ sim (fake-quant), fold (weight-only, folded weights), int8 (with
 sim), stream (weight-only with integer weights resident on the card;
 --stream-convs also streams the convs the byte cost model picks). int8
 and stream ignore --dtype, as in the JAX package (cli.py:405-406).
+
+The LSUN presets run their DDIM: lsun_beds256 200 steps at eta 1 (a
+VQ-f4 decode), lsun_churches256 "400" steps at eta 0, which the
+reference's stride 1000 // 400 makes 500 UNet calls (a KL-f8 decode);
+the step noise of eta > 0 comes from a generator seeded with --seed.
 
 Runs on the card unless --device cpu. With no --ckpt the UNet is
 initialised from seed 0, as the JAX CLI does (cli.py:349-350). Checkpoints
@@ -206,6 +224,13 @@ def _item_noise(seeds, shape) -> torch.Tensor:
         for s in seeds])
 
 
+def _step_noise(seed: int, device) -> torch.Generator:
+    """The generator of the samplers' step noise (eta > 0, e.g. the
+    LSUN-beds DDIM at eta 1), seeded from --seed as the JAX CLI seeds its
+    sampling key (cli.py:212, :427)."""
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
 def cmd_make_cali_data(args) -> dict:
     device = resolve_device(args.device)
     task = resolve_task(args)
@@ -239,7 +264,8 @@ def cmd_make_cali_data(args) -> dict:
             if task.sampler.sample_type in ("ddim", "plms") else "ddim"
         _, traj = pipe.sample(
             args.n, sampler=sampler, steps=steps, eta=task.sampler.eta,
-            cond=cond, uncond=uncond,
+            generator=_step_noise(args.seed, device), cond=cond,
+            uncond=uncond,
             guidance_scale=args.scale if args.scale is not None
             else task.sampler.guidance_scale,
             decode=False, x_init=x0, return_trajectory=True)
@@ -409,6 +435,7 @@ def cmd_sample(args) -> dict:
 
     images, batch_seconds, decode_seconds, model_calls = [], [], [], []
     nonfinite, idx = 0, 0
+    gen = _step_noise(args.seed, device)
     while idx < args.n:
         n = min(args.batch, args.n - idx)
         seeds = np.arange(idx, idx + n, dtype=np.int64) \
@@ -421,8 +448,9 @@ def cmd_sample(args) -> dict:
             x = pipe.sample(n, timesteps=steps,
                             skip_type=task.sampler.skip_type,
                             eta=task.sampler.eta, sample_type=sampler,
-                            qstate=qstate, mode=mode, x_init=x0,
-                            eval_dtype=eval_dtype, model_fn=model_fn)
+                            generator=gen, qstate=qstate, mode=mode,
+                            x_init=x0, eval_dtype=eval_dtype,
+                            model_fn=model_fn)
             _sync(device)
             batch_seconds.append(time.perf_counter() - t0)
             nonfinite += int((~torch.isfinite(x)).sum())
@@ -432,8 +460,8 @@ def cmd_sample(args) -> dict:
                                      task.latent_channels)).to(device)
             cond_n, uncond_n = tile_conditioning(cond, uncond, n)
             z = pipe.sample(n, sampler=sampler, steps=steps,
-                            eta=task.sampler.eta, cond=cond_n,
-                            uncond=uncond_n, guidance_scale=scale,
+                            eta=task.sampler.eta, generator=gen,
+                            cond=cond_n, uncond=uncond_n, guidance_scale=scale,
                             model_fn=model_fn, decode=False, x_init=x0,
                             eval_dtype=eval_dtype)
             _sync(device)

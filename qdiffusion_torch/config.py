@@ -2,7 +2,12 @@
 qdiffusion_tpu/config.py). `cifar10` reproduces the reference's
 configs/cifar10.yml with the sample_diffusion_ddim.py defaults; `sd_v1`
 its configs/stable-diffusion/v1-inference.yaml with the txt2img.py
-sampler (PLMS-50, guidance 7.5). The LSUN presets are not ported.
+sampler (PLMS-50, guidance 7.5); `lsun_beds256` (LDM-4, VQ-f4, DDIM-200,
+eta 1) and `lsun_churches256` (LDM-8, KL-f8, DDIM-400, eta 0) the
+reference's LSUN latent-diffusion models with its sample_diffusion_ldm.py
+settings. The JAX TaskConfig's scale_by_std and cond_stage fields serve
+only its torch .ckpt and YAML readers, which the port has not; the
+churches preset carries the scale_by_std checkpoints' scale factor.
 QuantFlags carries the calibration flags of both passes and maps them
 into a CalibConfig as the JAX package's does (config.py:96-107)."""
 
@@ -126,6 +131,36 @@ CIFAR10 = TaskConfig(
                              ch_mult=(1, 2, 2, 2), num_res_blocks=2,
                              attn_resolutions=(16,), resolution=32))
 
+LSUN_BEDS256 = TaskConfig(
+    name="lsun_beds256", family="ldm",
+    schedule=ScheduleConfig("ldm", "linear", 0.0015, 0.0195, 1000),
+    sampler=SamplerConfig("ddim", 200, "uniform", 1.0),
+    image_size=256, channels=3, latent_size=64, latent_channels=3,
+    unet_ldm=LDMUNetConfig(image_size=64, in_channels=3, out_channels=3,
+                           model_channels=224,
+                           attention_resolutions=(8, 4, 2),
+                           num_res_blocks=2, channel_mult=(1, 2, 3, 4),
+                           num_head_channels=32),
+    vae=VAEConfig(ch=128, out_ch=3, ch_mult=(1, 2, 4), num_res_blocks=2,
+                  attn_resolutions=(), in_channels=3, resolution=256,
+                  z_channels=3, double_z=False, embed_dim=3, n_embed=8192))
+
+LSUN_CHURCHES256 = TaskConfig(
+    name="lsun_churches256", family="ldm",
+    schedule=ScheduleConfig("ldm", "linear", 0.0015, 0.0155, 1000),
+    sampler=SamplerConfig("ddim", 400, "uniform", 0.0),
+    image_size=256, channels=3, latent_size=32, latent_channels=4,
+    scale_factor=0.18215,  # scale_by_std checkpoint value
+    unet_ldm=LDMUNetConfig(image_size=32, in_channels=4, out_channels=4,
+                           model_channels=192,
+                           attention_resolutions=(1, 2, 4, 8),
+                           num_res_blocks=2, channel_mult=(1, 2, 2, 4, 4),
+                           num_heads=8, use_scale_shift_norm=True,
+                           resblock_updown=True),
+    vae=VAEConfig(ch=128, out_ch=3, ch_mult=(1, 2, 4, 4), num_res_blocks=2,
+                  attn_resolutions=(), in_channels=3, resolution=256,
+                  z_channels=4, double_z=True, embed_dim=4))
+
 SD_V1 = TaskConfig(
     name="sd_v1", family="sd",
     schedule=ScheduleConfig("ldm", "linear", 0.00085, 0.012, 1000),
@@ -144,4 +179,5 @@ SD_V1 = TaskConfig(
                   z_channels=4, double_z=True, embed_dim=4),
     clip=CLIPTextConfig())
 
-PRESETS = {c.name: c for c in (CIFAR10, SD_V1)}
+PRESETS = {c.name: c for c in (CIFAR10, LSUN_BEDS256, LSUN_CHURCHES256,
+                                 SD_V1)}

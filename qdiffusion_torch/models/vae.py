@@ -159,14 +159,22 @@ class VAE(torch.nn.Module):
 
     # -- decoder -----------------------------------------------------------
 
-    def vq_lookup(self, z: torch.Tensor) -> torch.Tensor:
-        """Nearest-codebook snap of NCHW z (taming VectorQuantizer2)."""
+    def vq_codes(self, z: torch.Tensor) -> torch.Tensor:
+        """(B*H*W,) codebook indices of NCHW z's pixels: the nearest by
+        |z|^2 - 2 z.e + |e|^2 in z's dtype, the JAX package's formula
+        (vae.py:281-290), so a bf16 carrier computes it in bf16; a tie
+        goes to the lowest index, as jnp.argmin's does."""
         emb = self.quantize.embedding.weight  # (n_embed, e_dim)
-        b, c, h, w = z.shape
-        flat = z.permute(0, 2, 3, 1).reshape(-1, c)
+        flat = z.permute(0, 2, 3, 1).reshape(-1, z.shape[1])
         d = ((flat ** 2).sum(dim=1, keepdim=True) - 2.0 * flat @ emb.T
              + (emb ** 2).sum(dim=1)[None, :])
-        quant = emb[d.argmin(dim=1)].reshape(b, h, w, c).permute(0, 3, 1, 2)
+        return d.argmin(dim=1)
+
+    def vq_lookup(self, z: torch.Tensor) -> torch.Tensor:
+        """Nearest-codebook snap of NCHW z (taming VectorQuantizer2)."""
+        b, c, h, w = z.shape
+        quant = self.quantize.embedding.weight[self.vq_codes(z)].reshape(
+            b, h, w, c).permute(0, 3, 1, 2)
         return z + (quant - z)
 
     def decode(self, z: torch.Tensor,

@@ -113,8 +113,11 @@ def timestep_embedding(t: torch.Tensor, dim: int, *,
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour 2x upsample."""
-    return F.interpolate(x, scale_factor=2, mode="nearest")
+    """Nearest-neighbour 2x upsample, channels_last out. A 1x1 input is
+    both layouts at once and F.interpolate then returns NCHW-contiguous,
+    which the card's kernels (B1, B4) refuse."""
+    return F.interpolate(x, scale_factor=2, mode="nearest").contiguous(
+        memory_format=torch.channels_last)
 
 
 def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Calibration of the latent models, the port against the JAX package, on
 the tiny UNets of test_torch_unet_ldm.py: SD_TINY (spatial transformers,
-a 7 x 24 context) and BEDS_TINY (legacy AttentionBlocks) with and
+a 7 x 24 context) and BEDS_TINY (legacy AttentionBlocks; the registry
+also CHURCH_TINY's, with its resblock up/down units) with and
 without act_quant_partition, f32 on the CPU, flash_threshold 16 so the
 64-token self-attentions could take the blockwise path. Params are numpy
 draws handed to both packages; both start from one qstate (JAX's weight
@@ -186,7 +187,9 @@ def _within(got: torch.Tensor, want, rel: float, kind="layer"):
 
 @pytest.mark.parametrize("name,partition", [("sd", False), ("sd", True),
                                             ("beds", False),
-                                            ("beds", True)])
+                                            ("beds", True),
+                                            ("church", False),
+                                            ("church", True)])
 def test_units_sites_and_qstate_keys_match_jax(name, partition):
     """The reconstruction units in JAX's order with its kinds, layer
     sites, takes_temb, extra sites and loss axes; the layer sites; and
@@ -221,11 +224,11 @@ def test_units_sites_and_qstate_keys_match_jax(name, partition):
     assert {s: set(v) for s, v in ta.items()} == {s: set(v)
                                                    for s, v in ja.items()}
     attn = {s for s, v in ta.items() if "sm" in v}
-    if name == "beds" and partition:
+    if name != "sd" and partition:
         assert attn == {u.name for u in tm.units if u.kind == "smvmatmul"}
         assert all(set(ta[s.replace("smv", "qkv")]) == {"q", "k"}
                    for s in attn)
-    assert len(attn) == {"sd": 8, "beds": 4}[name]
+    assert len(attn) == {"sd": 8, "beds": 4, "church": 4}[name]
 
 
 # -- the two repairs ----------------------------------------------------------

@@ -297,14 +297,19 @@ def _sm_pairs(card, kind):
                                    (1, 40, 300, 1, 512), (1, 130, 77, 2, 64),
                                    (2, 65, 129, 1, 17), (2, 33, 97, 1, 256),
                                    (1, 100, 70, 2, 512), (1, 37, 150, 1, 200),
-                                   (1, 66, 200, 1, 128)])
+                                   (1, 66, 200, 1, 128),
+                                   (1, 100, 1024, 14, 32),
+                                   (1, 64, 1024, 8, 24),
+                                   (1, 64, 1024, 1, 512)])
 def test_flash_kernels_match_plain(card, kernel, shape, dtype, kind):
     """Each CUDA kernel against its own plain version on the same CUDA
     inputs (ragged T and S; bf16 with D <= 128 runs flash_mma_kernel, D
     padded 40 -> 48; f32 with D <= 128 flash_tf32_kernel, Q in registers
     up to D = 80 and read from shared memory at 128; D > 128
     flash_wide_kernel at its 256 and 512 classes, D = 200 padded; D = 17
-    through element copies). f32: 5e-5 plus
+    through element copies; the LSUN UNets' 14 heads of 32 and 8 heads of
+    24, padded to the 32 class, and the KL-f8 decode's 1024 keys of 512
+    channels). f32: 5e-5 plus
     at most 1e-3 of the elements one softmax bucket apart (delta * max|v|; sum
     order moves p across a rounding boundary; scores summed over up to 512
     products give 5e-5 absolute / 1e-4 relative, observed 2.2e-5 at D =
@@ -1097,3 +1102,71 @@ def test_flash_kernels_with_a_16bit_softmax_quantizer(card, kernel, dtype):
         assert float(diff.max()) <= 5e-5 + delta * float(v.abs().max())
         assert float((diff > 5e-5).float().mean()) <= 1e-3
     assert bucket_flip_share(fn, plain, q, k, **kw) <= 1e-3
+
+
+def test_tiny_church_fold_card_matches_cpu(card):
+    """An LSUN-churches-shaped UNet (scale-shift norm, resblock up and
+    down, 4 heads of 16) under fold W4 in f32, flash_threshold 16 so its
+    four 64-token attentions launch B2 (D class 32, padded): the card
+    against the CPU, sum order only, 1e-4."""
+    from qdiffusion_torch import resolve_device
+    from qdiffusion_torch.calib.engine import init_weight_qstate
+    from qdiffusion_torch.config import QuantFlags
+    from qdiffusion_torch.deploy import make_quantized_step
+    from qdiffusion_torch.models.unet_ldm import LDMUNet, LDMUNetConfig
+    from qdiffusion_torch.ops.flash_attention import flash_attention
+
+    resolve_device(card)
+    cfg = LDMUNetConfig(image_size=16, in_channels=4, out_channels=4,
+                        model_channels=32, num_res_blocks=1,
+                        attention_resolutions=(2,), channel_mult=(1, 2),
+                        num_heads=4, use_scale_shift_norm=True,
+                        resblock_updown=True)
+    # seeded on the CPU and copied (a card generator draws other numbers)
+    models = []
+    for dev in ("cpu", card):
+        m = LDMUNet(cfg, QuantFlags(weight_bit=4).policy_ldm(),
+                    flash_threshold=16, device=dev)
+        m.load_state_dict(models[0].state_dict() if models
+                          else m.init_params(0))
+        models.append(m)
+    q = init_weight_qstate(models[0])
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 16, 4)).astype(
+        np.float32))
+    t = torch.tensor([10.0, 600.0])
+    want = make_quantized_step(models[0], q, engine="fold")(x, t)
+    before = flash_attention.launches
+    got = make_quantized_step(models[1], {
+        s: {k: {n: v.to(card) for n, v in st.items()} for k, st in sl.items()}
+        for s, sl in q.items()}, engine="fold")(x.to(card), t.to(card))
+    assert flash_attention.launches - before == 4
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_vq_codes_on_card_match_cpu(card):
+    """The LSUN-beds codebook's shape (8192 x 3, seeded) on 2 x 64 x 64
+    seeded latents: the card's f32 codes equal the CPU's except at
+    near-ties, whose two distances (in f64) lie within 1e-4 of
+    |z|^2 + |e|^2 (the size of the terms whose f32 rounding they carry)."""
+    from qdiffusion_torch.models.vae import VAE, VAEConfig
+
+    cfg = VAEConfig(ch=32, ch_mult=(1, 2, 4), num_res_blocks=1,
+                    resolution=32, z_channels=3, embed_dim=3, n_embed=8192)
+    g = torch.Generator().manual_seed(5)
+    emb = torch.randn((8192, 3), generator=g)
+    z = torch.randn((2, 3, 64, 64), generator=g)
+    codes = []
+    for dev in ("cpu", card):
+        vae = VAE(cfg, device=dev)
+        with torch.no_grad():
+            vae.quantize.embedding.weight.copy_(emb)
+            codes.append(vae.vq_codes(z.to(dev)).cpu())
+    at = (codes[0] != codes[1]).nonzero().flatten()
+    x = z.permute(0, 2, 3, 1).reshape(-1, 3)[at].double()
+    ea, eb = emb[codes[0][at]].double(), emb[codes[1][at]].double()
+    gap = (((x - ea) ** 2).sum(1) - ((x - eb) ** 2).sum(1)).abs()
+    size = (x ** 2).sum(1) + torch.maximum((ea ** 2).sum(1),
+                                           (eb ** 2).sum(1))
+    assert bool((gap <= 1e-4 * size).all())
+    assert at.numel() <= 1e-3 * codes[0].numel()

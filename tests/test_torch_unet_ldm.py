@@ -1,7 +1,9 @@
 """Tiny LDM UNets of the port against the JAX package, on the CPU.
 
-SD_TINY (spatial transformer, cross-attention context) and BEDS_TINY
-(legacy multi-head AttentionBlock), the configs of tests/test_unet_ldm.py.
+SD_TINY (spatial transformer, cross-attention context), BEDS_TINY
+(legacy multi-head AttentionBlock, num_head_channels) and CHURCH_TINY
+(AttentionBlock with num_heads, scale-shift norm, resblock up/down), the
+configs of tests/test_unet_ldm.py.
 Every leaf of the param tree is drawn from a numpy seed (so nothing is
 zero-initialised and every branch reaches eps) and handed to both
 packages. Both sides run with flash_threshold=16, so the 64-token
@@ -16,7 +18,8 @@ Tolerances (f32):
     |eps| ~ 3 and by 5e-2 in relative L2 (observed 0.1 and 3e-2).
     tests/test_torch_unet_quant.py holds each quantizer site of the
     pixel UNet to one bucket beyond its input's drift. SD runs the 'mse'
-    activation init of its policy, beds the 'max' one (--a-min-max),
+    activation init of its policy, beds and church the 'max' one
+    (--a-min-max, the LSUN calibration's init),
     which keeps the JAX compile of the init short.
   * the port's own 'mse' weight qstate equals the JAX one on at least
     99 % of the channels (the 80-candidate search can pick another
@@ -59,7 +62,11 @@ BEDS_TINY = dict(
     image_size=16, in_channels=3, out_channels=3, model_channels=32,
     num_res_blocks=1, attention_resolutions=(4, 2), channel_mult=(1, 2),
     num_head_channels=16, use_spatial_transformer=False)
-CONFIGS = {"sd": SD_TINY, "beds": BEDS_TINY}
+CHURCH_TINY = dict(
+    image_size=16, in_channels=4, out_channels=4, model_channels=32,
+    num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+    num_heads=4, use_scale_shift_norm=True, resblock_updown=True)
+CONFIGS = {"sd": SD_TINY, "beds": BEDS_TINY, "church": CHURCH_TINY}
 
 
 def random_tree(like, seed):
@@ -131,7 +138,7 @@ def _torch(fn, x, t, c):
         return fn(*args).numpy()
 
 
-@pytest.mark.parametrize("name", ["sd", "beds"])
+@pytest.mark.parametrize("name", list(CONFIGS))
 def test_registry_and_state_dict_match_jax(name):
     jm, tm, params = build_pair(name)
     assert [u.name for u in tm.units] == [u.name for u in jm.units]
@@ -140,7 +147,7 @@ def test_registry_and_state_dict_match_jax(name):
     assert set(tm.state_dict()) == set(from_jax_params(params))
 
 
-@pytest.mark.parametrize("name", ["sd", "beds"])
+@pytest.mark.parametrize("name", list(CONFIGS))
 def test_fp_forward_matches_jax(name):
     jm, tm, params = build_pair(name)
     x, t, c = inputs(name)
@@ -169,7 +176,7 @@ def test_blockwise_gate_reaches_the_flash_path(monkeypatch):
     assert seen == [(64, 64)] * 4
 
 
-@pytest.mark.parametrize("name", ["sd", "beds"])
+@pytest.mark.parametrize("name", list(CONFIGS))
 def test_fold_w4_matches_jax(name):
     jm, tm, params = build_pair(name, weight_bit=4)
     jq = jax.tree_util.tree_map(np.asarray, jax.jit(
@@ -195,7 +202,7 @@ def test_fold_w4_matches_jax(name):
 
 def _sim_pair(name):
     jm, tm, params = build_pair(name, weight_bit=8, quant_act=True,
-                                a_min_max=name == "beds")
+                                a_min_max=name != "sd")
     x, t, c = inputs(name)
     a, kw = _jax_args(x, t, c)
     jq = jax.jit(lambda p: jax_init_w(jm, p))(params)
@@ -204,12 +211,12 @@ def _sim_pair(name):
     return jm, tm, params, jq, (x, t, c)
 
 
-@pytest.mark.parametrize("name", ["sd", "beds"])
+@pytest.mark.parametrize("name", list(CONFIGS))
 def test_sim_w8a8_matches_jax(name):
     jm, tm, params, jq, (x, t, c) = _sim_pair(name)
     tq = qstate_from_jax(jq)
     attn = [s for s in tq if "sm" in tq[s]]
-    assert len(attn) == {"sd": 8, "beds": 4}[name]
+    assert len(attn) == {"sd": 8, "beds": 4, "church": 4}[name]
     assert all({"q", "k", "v", "sm"} <= set(tq[s]) for s in attn)
     want = _jax_apply(jm, params, x, t, c, jq)
     n = flash_attention.flash_attention.launches
