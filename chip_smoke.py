@@ -20,9 +20,12 @@ every kernel of them against its plain PyTorch version:
                 bound; the plan's path, "rows" or "split", which the
                 profiler's kernel names must show);
   2. fold     - `cli sample --task cifar10 --engine fold --weight-bit 4
-                --dtype bfloat16 --n 64 --batch 64` (DDIM-100), the B1
-                launch count against 100 x the per-step count;
-  3. card/CPU - one fold step at batch 2, card bf16 against CPU f32;
+                --dtype bfloat16 --n 128 --batch 64` (DDIM-100, the
+                second batch timed), the B1 launch count against 100 x
+                the per-step count;
+  3. card/CPU - one fold step at batch 2, then a DPM-Solver sample
+                (singlestep order 3, 6 steps: [3, 3]) at batch 2 on the
+                same step, card bf16 against CPU f32 (5e-2 relative L2);
   4. sim      - W8A8, activation qstate from 8 inputs, one f32 step at
                 batch 64 and a 10-step DDIM through the CLI.
   calib       - the AdaRound weight pass through the CLI: `make-cali-data
@@ -94,8 +97,10 @@ every kernel of them against its plain PyTorch version:
                 calls per batch, and the B1/B2/B3 launch counts against a
                 spy's count of one UNet call and one decode;
   8. sd_card_vs_cpu - one fold UNet call with context at 32x32 latents,
-                batch 1, card bf16 against CPU f32 (the 1024-token sites
-                reach B2);
+                batch 1, then a DPM-Solver sample (multistep order 2, 4
+                steps, so its order-2 update runs; CFG 7.5) on the same
+                models, card bf16 against CPU f32 (the 1024-token sites
+                reach B2: 5 a call);
   9. sd_sim   - W8A8: activation qstate from 2 inputs, one bf16 UNet call
                 at batch 8 and a 5-step PLMS through the CLI (f32), with
                 B2 launched with its softmax quantizer.
@@ -157,6 +162,28 @@ every kernel of them against its plain PyTorch version:
                 batch; img/s of batch 2) and the same at --weight-bit
                 8 --timesteps 5 --n 2 (B5 on the streamed convs), with the
                 streamed conv sites.
+  The remaining samplers (DPM-Solver++ and ancestral DDPM) through `cli
+  sample --sampler`, after 12, on the files and qstates of 2, 7 and 11:
+  sampler_cli - under `_spied_cli` (every kernel counter set to 0 just
+                before, the wrapper calls split at each UNet call):
+                CIFAR-10 fold W4 bf16 `--sampler dpm_solver --timesteps
+                20` (singlestep order 3, [3]*6 + [2]: 20 UNet calls) and
+                `--sampler ddpm_noisy` (the preset's 100), int8 W4A8
+                --split `--sampler dpm_solver --timesteps 20`, two batches
+                of 64; SD v1 fold W4 bf16 at batch 4 `--sampler dpm_solver
+                --timesteps 50` (multistep order 2, CFG 7.5: txt2img's
+                --dpm_solver) and stream W4 --stream-convs at batch 1
+                `--timesteps 20`, two batches each: UNet calls = the
+                solver's NFE, every kernel's launches per UNet call equal
+                to the same engine's under DDIM / PLMS (B1 51 and B4 113 a
+                CIFAR call; B1 61, B2 10 and B6 220 a SD call; the decode's
+                B1 30 and B3 1), launches = the wrappers' calls, finite
+                uint8 output; img/s and ms per UNet call of the second
+                batch beside the same engine's DDIM / PLMS run above;
+                then each of these sampler loops and its DDIM / PLMS base
+                at the runs' shapes with a model that returns a fixed eps:
+                the solver's own ms per model call. Their card-vs-CPU
+                checks ride in 3 and 8.
   The LSUN latent-diffusion family (lsun_beds256: LDM-4, VQ-f4 decode,
   DDIM-200 at eta 1; lsun_churches256: LDM-8, KL-f8 decode, DDIM "400",
   which the reference's stride makes 500 UNet calls, at eta 0; full
@@ -175,8 +202,9 @@ every kernel of them against its plain PyTorch version:
                 W4A8 --split qstates of the UNet the CLI draws without
                 --ckpt (acts 'max' from 4 latents, on the
                 act-quant partition that --quant-act builds); `cli sample`
-                through fold (bf16, batch 8, two batches, the preset's
-                steps), sim W8A8 (f32, DDIM-5, two batches of 4), int8
+                through fold (bf16, batch 8, two batches; beds at the
+                preset's DDIM-200, churches at DDIM-100, 100 of its
+                preset's 500 calls, for time), sim W8A8 (f32, DDIM-5, two batches of 4), int8
                 W4A8 --split (DDIM-5, two batches of 4) and stream W4
                 --stream-convs (DDIM-20, two batches of 1), the second
                 batch timed, each with every kernel's launch count
@@ -260,6 +288,8 @@ SD_N = 2 * SD_BATCH
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),  # sum order only
        torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}  # one bf16 rounding
 REL_L2_CARD_VS_CPU = 5e-2  # bf16 carrier against the f32 reference
+DPM_CPU_STEPS = 6  # CIFAR DPM-Solver card vs CPU: order 3 plans [3, 3]
+SD_DPM_CPU_STEPS = 4  # SD: multistep reaches its order-2 update
 INT8_N = 2 * BATCH  # int8 CLI: two batches, the second one timed
 # int8 step at batch 2, full width. f32 noise outside the exact integer
 # products flips quantization buckets, and the flips cascade through the
@@ -567,7 +597,7 @@ def phase_fold(task, out: Path, per_step: int, check: Checks) -> dict:
     qpath = out / "w4_qstate.npz"
     save_qstate(qpath, init_weight_qstate(_seeded_model(task, weight_bit=4)))
 
-    n = BATCH
+    n = 2 * BATCH  # two batches, the second timed
     fused_group_norm.launches = 0
     res = cli.main(["sample", "--task", "cifar10", "--qstate", str(qpath),
                     "--weight-bit", "4", "--engine", "fold",
@@ -596,14 +626,23 @@ def phase_fold(task, out: Path, per_step: int, check: Checks) -> dict:
 
 
 def phase_card_vs_cpu(task, out: Path, check: Checks) -> dict:
+    """One fold step at batch 2, then a DPM-Solver sample (singlestep
+    order 3, DPM_CPU_STEPS) at batch 2 through the pixel pipeline on the
+    same step: card bf16 against CPU f32, each within
+    REL_L2_CARD_VS_CPU relative L2."""
+    from qdiffusion_torch import cli
     from qdiffusion_torch.deploy import make_quantized_step
+    from qdiffusion_torch.ops.groupnorm import fused_group_norm
+    from qdiffusion_torch.pipelines import PixelDiffusionPipeline
     from qdiffusion_torch.utils.checkpoints import load_qstate
 
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(
         np.float32))
     t = torch.tensor([10.0, 500.0])
-    eps = {}
+    x0 = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32))
+    eps, dpm, b1 = {}, {}, 0
     for dev, dtype in (("cpu", None), ("cuda", torch.bfloat16)):
         model = _seeded_model(task, dev, weight_bit=4)
         step = make_quantized_step(model, load_qstate(out / "w4_qstate.npz",
@@ -612,16 +651,19 @@ def phase_card_vs_cpu(task, out: Path, check: Checks) -> dict:
         xin = x.to(dev) if dtype is None else x.to(dev, dtype)
         with torch.no_grad():
             eps[dev] = step(xin, t.to(dev)).float().cpu()
-    ref, got = eps["cpu"], eps["cuda"]
-    rel = float(torch.linalg.vector_norm(got - ref)
-                / torch.linalg.vector_norm(ref))
-    check(bool(torch.isfinite(got).all()), "card fold step not finite")
-    check(rel <= REL_L2_CARD_VS_CPU,
-          f"card bf16 vs CPU f32 fold step: relative L2 {rel}")
-    row = {"phase": "card_vs_cpu", "batch": 2, "rel_l2": rel,
-           "tolerance": REL_L2_CARD_VS_CPU,
-           "max_abs_err": float((got - ref).abs().max()),
-           "ref_abs_max": float(ref.abs().max())}
+        n = fused_group_norm.launches
+        dpm[dev] = PixelDiffusionPipeline(model, cli._schedule(task)).sample(
+            2, timesteps=DPM_CPU_STEPS, sample_type="dpm_solver",
+            x_init=x0.to(dev), eval_dtype=dtype, model_fn=step).cpu()
+        b1 = fused_group_norm.launches - n
+    row = {"phase": "card_vs_cpu", "batch": 2,
+           "step": _rel_row("cifar fold step", eps["cuda"], eps["cpu"],
+                            check),
+           "dpm_solver": _rel_row("cifar fold dpm_solver sample",
+                                  dpm["cuda"], dpm["cpu"], check)}
+    check(b1 == DPM_CPU_STEPS * 51, f"card fold dpm_solver: {b1} B1 "
+                                    f"launches, expected {DPM_CPU_STEPS} x 51")
+    row["dpm_solver"].update(steps=DPM_CPU_STEPS, b1_launches=b1)
     _emit(row)
     return row
 
@@ -1940,14 +1982,29 @@ def phase_sd_fold_cli(task, work: Path, spy: dict, check: Checks) -> dict:
     return row
 
 
-def _fold_card_vs_cpu(tag: str, build, args: tuple, check: Checks) -> dict:
+def _rel_row(tag: str, got, ref, check: Checks) -> dict:
+    """Card against CPU within REL_L2_CARD_VS_CPU relative L2."""
+    rel = float(torch.linalg.vector_norm(got - ref)
+                / torch.linalg.vector_norm(ref))
+    check(bool(torch.isfinite(got).all()), f"{tag} on the card not finite")
+    check(rel <= REL_L2_CARD_VS_CPU,
+          f"{tag}, card bf16 vs CPU f32: relative L2 {rel}")
+    return {"rel_l2": rel, "tolerance": REL_L2_CARD_VS_CPU,
+            "max_abs_err": float((got - ref).abs().max()),
+            "ref_abs_max": float(ref.abs().max())}
+
+
+def _fold_card_vs_cpu(tag: str, build, args: tuple, check: Checks,
+                      sample=None) -> dict:
     """One fold W4 UNet call, card bf16 (B1, and B2 at the five 1024-token
     sites) against CPU f32 within REL_L2_CARD_VS_CPU relative L2:
     `build(dev)` gives the folded f32 model on `dev`, `args` the call's
-    CPU inputs, x first (cast to bf16 on the card)."""
+    CPU inputs, x first (cast to bf16 on the card). `sample(model, dev,
+    dtype)`, when given, runs on the same models: its result is held to
+    the same bound, and its B2 launches on the card are returned."""
     from qdiffusion_torch.ops.flash_attention import flash_attention
 
-    eps, b2 = {}, 0
+    eps, out, b2, b2_sample = {}, {}, 0, 0
     for dev, dtype in (("cpu", None), ("cuda", torch.bfloat16)):
         model = build(dev)
         xs = [None if a is None else a.to(dev) for a in args]
@@ -1958,35 +2015,41 @@ def _fold_card_vs_cpu(tag: str, build, args: tuple, check: Checks) -> dict:
         with torch.no_grad():
             eps[dev] = model(*xs).float().cpu()
         b2 = flash_attention.launches - n if dev == "cuda" else b2
+        if sample is not None:
+            n = flash_attention.launches
+            out[dev] = sample(model, dev, dtype).float().cpu()
+            b2_sample = flash_attention.launches - n
         del model
-    ref, got = eps["cpu"], eps["cuda"]
-    rel = float(torch.linalg.vector_norm(got - ref)
-                / torch.linalg.vector_norm(ref))
-    check(bool(torch.isfinite(got).all()), f"{tag} card UNet call not finite")
     check(b2 == 5, f"{tag} card vs CPU: {b2} B2 launches, expected 5")
-    check(rel <= REL_L2_CARD_VS_CPU,
-          f"{tag} card bf16 vs CPU f32 fold call: relative L2 {rel}")
-    return {"rel_l2": rel, "tolerance": REL_L2_CARD_VS_CPU,
-            "flash_attention_launches": b2,
-            "max_abs_err": float((got - ref).abs().max()),
-            "ref_abs_max": float(ref.abs().max())}
+    row = {**_rel_row(f"{tag} fold call", eps["cuda"], eps["cpu"], check),
+           "flash_attention_launches": b2}
+    if sample is not None:
+        row["sample"] = {**_rel_row(f"{tag} fold sample", out["cuda"],
+                                    out["cpu"], check),
+                         "flash_attention_launches": b2_sample}
+    return row
 
 
 def phase_sd_card_vs_cpu(task, work: Path, check: Checks) -> dict:
     """One fold W4 UNet call with context at 32x32 latents, batch 1 (2
-    until the LSUN phases needed the time): card bf16 against CPU f32."""
+    until the LSUN phases needed the time), then on the same models a
+    DPM-Solver sample (SD_DPM_CPU_STEPS, its order-2 multistep update
+    reached, CFG 7.5 over [uncond; cond]) from the same latents: card
+    bf16 against CPU f32."""
+    from qdiffusion_torch import cli
     from qdiffusion_torch.cli import load_fp_params
     from qdiffusion_torch.config import QuantFlags
     from qdiffusion_torch.deploy import fold_weights
     from qdiffusion_torch.models.unet_ldm import LDMUNet
+    from qdiffusion_torch.pipelines import LatentDiffusionPipeline
     from qdiffusion_torch.utils.checkpoints import load_qstate
 
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.standard_normal((2, 32, 32, 4)).astype(
         np.float32))[:1]
     t = torch.tensor([10.0])
-    c = torch.from_numpy(rng.standard_normal((2, 77, 768)).astype(
-        np.float32))[:1]
+    c, u = torch.from_numpy(rng.standard_normal((2, 77, 768)).astype(
+        np.float32)).split(1)
 
     def build(dev):
         model = LDMUNet(task.unet_ldm, QuantFlags(weight_bit=4).policy_ldm(),
@@ -1996,8 +2059,25 @@ def phase_sd_card_vs_cpu(task, work: Path, check: Checks) -> dict:
             model, load_qstate(work / "w4_qstate.npz", dev)))
         return model
 
+    def sample(model, dev, dtype):
+        """DPM-Solver (multistep order 2, SD_DPM_CPU_STEPS, CFG 7.5) on
+        the same model, batch 1, from x."""
+        pipe = LatentDiffusionPipeline(unet=model, vae=None,
+                                       schedule=cli._schedule(task))
+        return pipe.sample(
+            1, sampler="dpm_solver", steps=SD_DPM_CPU_STEPS,
+            cond=c.to(dev), uncond=u.to(dev), guidance_scale=7.5,
+            decode=False, x_init=x.to(dev), eval_dtype=dtype,
+            model_fn=lambda x, t, ctx: model(x, t, None, ctx))
+
     row = {"phase": "sd_card_vs_cpu", "batch": 1, "latent": 32,
-           **_fold_card_vs_cpu("sd", build, (x, t, None, c), check)}
+           **_fold_card_vs_cpu("sd", build, (x, t, None, c), check,
+                               sample)}
+    b2 = row["sample"]["flash_attention_launches"]
+    check(b2 == 5 * SD_DPM_CPU_STEPS, f"sd dpm_solver card vs CPU: {b2} B2 "
+                                      f"launches, expected "
+                                      f"{SD_DPM_CPU_STEPS} x 5")
+    row["sample"]["steps"] = SD_DPM_CPU_STEPS
     _emit(row)
     return row
 
@@ -3244,15 +3324,190 @@ def phase_int8_profile(setup: dict, out: Path) -> dict:
     return row
 
 
+# -- the remaining samplers (DPM-Solver++, ancestral DDPM) through
+#    `sample --sampler` on the CIFAR-10 and SD v1 engines ---------------------
+
+DPM_STEPS = 20  # --timesteps of the DPM-Solver runs (NFE 20)
+SD_DPM_STEPS = 50  # txt2img's --dpm_solver at its default 50 steps
+
+
+def _sampler_run(argv: list, tag: str, sampler: str, steps: int, n: int,
+                 batch: int, decodes: bool, per_call: dict, base: dict,
+                 check: Checks) -> dict:
+    """`cli sample ... --sampler S --timesteps N` under `_spied_cli`: one
+    UNet call per solver evaluation (`steps` a batch for DPM-Solver and
+    DDPM alike), each launching every kernel as `per_call` (the same
+    engine's count under DDIM / PLMS) says, finite uint8 output; img/s
+    and ms per UNet call of the last batch beside `base`, the same
+    engine's DDIM / PLMS run in this smoke."""
+    batches = n // batch
+    res, spied = _spied_cli(argv + ["--sampler", sampler, "--timesteps",
+                                    str(steps), "--n", str(n), "--batch",
+                                    str(batch), "--device", "cuda"],
+                            tag, batches * steps, batches if decodes else 0,
+                            check)
+    with np.load(res["path"]) as f:
+        imgs = f["arr_0"]
+    check(imgs.dtype == np.uint8 and imgs.shape[0] == n,
+          f"{tag}: npz {imgs.shape} {imgs.dtype}")
+    check(res["nonfinite"] == 0, f"{tag}: {res['nonfinite']} non-finite")
+    check(res["sampler"] == sampler and res["model_calls"] == [steps]
+          * batches, f"{tag}: {res['sampler']} with UNet calls "
+                     f"{res['model_calls']}, expected {steps} a batch")
+    got = {k: spied["per_unet_call"][k] for k in per_call}
+    check(got == per_call and all(
+        v == 0 for k, v in spied["per_unet_call"].items()
+        if k not in per_call), f"{tag}: launches per UNet call "
+                               f"{spied['per_unet_call']}, the DDIM / "
+                               f"PLMS path's {per_call}")
+    secs = res["batch_seconds"]
+    dec = res.get("decode_seconds") or [0.0]
+    ms = (secs[-1] - dec[-1]) / steps * 1e3
+    row = {"phase": "sampler_cli", "run": tag, "sampler": sampler,
+           "steps": steps, "n": n, "batch": batch, "batch_seconds": secs,
+           "img_per_s": batch / secs[-1], "ms_per_unet_call": ms,
+           "base": base, "ms_per_call_minus_base":
+               ms - base["ms_per_unet_call"],
+           "image_shape": list(imgs.shape), **spied,
+           "image_mean": float(imgs.mean()), "image_std": float(imgs.std())}
+    _emit(row)
+    return row
+
+
+def _sampler_loop_ms(task, sd) -> dict:
+    """The "Pipeline + sampler" layer alone: ms per model call of each
+    sampler loop of the sampler_cli runs and of their DDIM / PLMS base,
+    at the runs' shapes and carriers, with a model that returns a fixed
+    eps (a view: no kernel), so what is left is the solver's host work
+    and elementwise kernels. Host clock around a synchronised loop, the
+    median of three."""
+    from qdiffusion_torch import cli
+    from qdiffusion_torch.samplers.ddim import ddim_sample, ddpm_sample
+    from qdiffusion_torch.samplers.dpm_solver import NoiseScheduleVP, \
+        dpm_solver_sample
+    from qdiffusion_torch.samplers.ldm import DDIMTables, plms_sample
+    from qdiffusion_torch.schedules import make_skip_sequence
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    bf16 = torch.bfloat16
+
+    def ms(run, x, calls, dtype=None):
+        e = torch.randn((2 * x.shape[0],) + x.shape[1:], generator=g,
+                        device="cuda").to(dtype or x.dtype)
+        fn = lambda x, t, *c: e[:x.shape[0]]  # noqa: E731
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(fn, x.clone())
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) / calls * 1e3)
+        return sorted(times)[1]
+
+    px = torch.randn((BATCH, 32, 32, 3), generator=g, device="cuda")
+    pbetas = cli._schedule(task).betas
+    seq = make_skip_sequence(1000, STEPS, task.sampler.skip_type)
+    pns = NoiseScheduleVP("discrete", betas=pbetas)
+    lbetas = cli._schedule(sd).betas
+    lns = NoiseScheduleVP("discrete", betas=lbetas)
+    tables = DDIMTables.build(np.cumprod(1.0 - lbetas), SD_STEPS, 0.0)
+    c = torch.randn((SD_BATCH, 77, 768), generator=g, device="cuda")
+    out = {"cifar10 (64, 32, 32, 3), bf16 carrier": {
+        "ddim_100": ms(lambda f, x: ddim_sample(
+            f, x, seq, pbetas, eval_dtype=bf16), px, STEPS, bf16),
+        "ddpm_100": ms(lambda f, x: ddpm_sample(
+            f, x, seq, pbetas, generator=g, eval_dtype=bf16), px, STEPS,
+            bf16),
+        "dpm_solver_20": ms(lambda f, x: dpm_solver_sample(
+            f, x, pns, steps=DPM_STEPS, order=3, method="singlestep",
+            eval_dtype=bf16), px, DPM_STEPS, bf16)}}
+    for key, n, dtype, dpm_steps in (
+            ("sd_v1 fold (4, 64, 64, 4), CFG, bf16 carrier", SD_BATCH, bf16,
+             SD_DPM_STEPS),
+            ("sd_v1 stream (1, 64, 64, 4), CFG, f32", STREAM_BATCH, None,
+             DPM_STEPS)):
+        lx = torch.randn((n, 64, 64, 4), generator=g, device="cuda")
+        cfg = dict(cond=c[:n], uncond=c[:n], guidance_scale=7.5,
+                   eval_dtype=dtype)
+        out[key] = {
+            f"plms_{SD_STEPS}": ms(lambda f, x: plms_sample(
+                f, x, tables, **cfg), lx, SD_STEPS + 1, dtype),
+            f"dpm_solver_{dpm_steps}": ms(lambda f, x: dpm_solver_sample(
+                f, x, lns, steps=dpm_steps, order=2, method="multistep",
+                with_context=True, **cfg), lx, dpm_steps, dtype)}
+    return out
+
+
+def phase_samplers(task, sd, out: Path, work: Path, per_step: int,
+                   b4_per_step: int, spy: dict, st: dict, base: dict,
+                   check: Checks) -> dict:
+    """The pixel and latent samplers beyond DDIM and PLMS through `cli
+    sample --sampler` at full width: CIFAR-10 fold W4 bf16 with
+    DPM-Solver (20 steps) and DDPM (the preset's 100), int8 W4A8 --split
+    with DPM-Solver (20), two batches of 64; SD v1 fold W4 bf16 with
+    DPM-Solver-50 and CFG 7.5 at batch 4 and stream W4 --stream-convs
+    with DPM-Solver-20 at batch 1, two batches each. `base`: the same
+    engines' DDIM / PLMS rows of this smoke."""
+    w4 = ["--qstate", str(out / "w4_qstate.npz"), "--weight-bit", "4"]
+    cifar = ["sample", "--task", "cifar10"]
+    fold_call = {"group_norm": per_step}
+    int8_call = {"group_norm": per_step, "int8_conv": b4_per_step}
+    runs = {}
+    for key, flags, sampler, steps, per_call in (
+            ("cifar10_fold_dpm_solver", w4 + ["--engine", "fold", "--dtype",
+                                               "bfloat16"],
+             "dpm_solver", DPM_STEPS, fold_call),
+            ("cifar10_fold_ddpm", w4 + ["--engine", "fold", "--dtype",
+                                        "bfloat16"],
+             "ddpm_noisy", STEPS, fold_call),
+            ("cifar10_int8_dpm_solver",
+             ["--qstate", str(out / "w4a8_qstate.npz"), "--weight-bit", "4",
+              "--quant-act", "--split", "--engine", "int8"],
+             "dpm_solver", DPM_STEPS, int8_call)):
+        engine = "int8" if "int8" in key else "fold"
+        runs[key] = _sampler_run(
+            cifar + flags + ["--npz-out", str(out / f"{key}.npz")], key,
+            sampler, steps, 2 * BATCH, BATCH, False, per_call,
+            base[f"cifar10_{engine}"], check)
+    sd_files = ["sample", "--task", "sd_v1", "--ckpt", str(work / "unet.npz"),
+                "--vae-ckpt", str(work / "vae.npz"), "--clip-ckpt",
+                str(work / "clip.npz"), "--token-ids",
+                str(work / "token_ids.npz"), "--qstate",
+                str(work / "w4_qstate.npz"), "--weight-bit", "4"]
+    fold_sd = dict(spy["unet_call"])
+    stream_sd = {**st[4]["unet_call"],
+                 "int4_stream_matmul": len(st[4]["shapes"])}
+    for key, flags, steps, n, batch, per_call in (
+            ("sd_v1_fold_dpm_solver", ["--engine", "fold", "--dtype",
+                                       "bfloat16"], SD_DPM_STEPS, SD_N,
+             SD_BATCH, fold_sd),
+            ("sd_v1_stream_w4_dpm_solver", ["--engine", "stream",
+                                            "--stream-convs"], DPM_STEPS,
+             STREAM_N_W4, STREAM_BATCH, stream_sd)):
+        runs[key] = _sampler_run(
+            sd_files + flags + ["--npz-out", str(work / f"{key}.npz")], key,
+            "dpm_solver", steps, n, batch, True, per_call,
+            base[key.replace("_dpm_solver", "")], check)
+        check(runs[key]["per_decode"] == {**dict.fromkeys(
+            runs[key]["per_decode"], 0), **spy["decode"]},
+            f"{key}: launches per decode {runs[key]['per_decode']}, the "
+            f"spy's {spy['decode']}")
+    loops = _sampler_loop_ms(task, sd)
+    _emit({"phase": "sampler_loops", "ms_per_model_call": loops})
+    return {**runs, "sampler_loops": loops}
+
+
 # -- the LSUN latent-diffusion family (beds LDM-4 + VQ-f4, churches LDM-8
 #    + KL-f8) through every engine, and the beds W4A8 calibration ----------
 
 def lsun_spy() -> Spy:
-    """Every kernel-wrapper call of a latent sampling run, in call order:
+    """Every kernel-wrapper call of a sampling run, in call order:
     B1 at both its call sites, the blockwise dispatch's B2 / B3, the int8
     engine's B4, the stream engine's B6 / B5 (and each conv it streams,
     as (input shape, kernel, stride)), with the markers "forward" (an
-    LDMUNet call begins) and "decode" (a first-stage decode begins)."""
+    LDMUNet or DDIMUNet call begins) and "decode" (a first-stage decode
+    begins)."""
+    import qdiffusion_torch.models.unet_ddim as unet_ddim
     import qdiffusion_torch.models.unet_ldm as unet_ldm
     import qdiffusion_torch.nn as qnn
     import qdiffusion_torch.ops.attention as att
@@ -3271,6 +3526,7 @@ def lsun_spy() -> Spy:
                 (int8, "int8_conv"), (ql, "int4_dense_stream"),
                 (ql, "int8_dense_stream"), (ql, "_stream_conv2d"),
                 (unet_ldm.LDMUNet, "forward"),
+                (unet_ddim.DDIMUNet, "forward"),
                 (LatentDiffusionPipeline, "decode")], record)
 
 
@@ -3350,6 +3606,9 @@ LSUN_BATCH = 8  # fold: the JAX package's headline batch
 # (scripts/throughput_headline.py:37), two batches, the second timed
 LSUN_SIM_STEPS = LSUN_INT8_STEPS = 5  # DDIM-5 (the presets: 200, 400)
 LSUN_STREAM_STEPS = 20  # batch-1 stream: DDIM-20
+# fold --timesteps per preset (None: the preset's); churches' "400" (500
+# UNet calls a batch) cut to 100 for the smoke's time limit
+LSUN_FOLD_STEPS = {"lsun_beds256": None, "lsun_churches256": 100}
 # engine -> (flags of `cli sample`, qstate file, n, batch, --timesteps;
 # None runs the preset's steps)
 LSUN_RUNS = {
@@ -3773,8 +4032,10 @@ def phase_lsun(task, work: Path, smi: str, spied: dict, check: Checks,
     `phase_lsun_spy` row)."""
     t0 = time.perf_counter()
     files = phase_lsun_files(task, work, check)
-    runs = {engine: _lsun_sample(task, work, engine, check)
-            for engine in LSUN_RUNS}
+    runs = {engine: _lsun_sample(
+        task, work, engine, check,
+        steps=LSUN_FOLD_STEPS[task.name] if engine == "fold" else None)
+        for engine in LSUN_RUNS}
     fold, st = runs["fold"]["per_unet_call"], runs["stream"]
     check(fold["flash_attention"] == 5 and fold["int8_conv"] == 0,
           f"{task.name} fold: per call {fold}")
@@ -4191,6 +4452,28 @@ def main(argv=None) -> int:
             check(row["launches"][name] > 0,
                   f"sd stream W{wbits}: {name} not launched")
 
+    # slice 12's paths: DPM-Solver and DDPM through `sample --sampler`,
+    # beside the same engines' DDIM / PLMS runs above
+    base = {"cifar10_fold": ("generalized", fold["ms_per_step"],
+                             fold["img_per_s"]),
+            "cifar10_int8": ("generalized", int8_cli["ms_per_step"],
+                             int8_cli["img_per_s"]),
+            "sd_v1_fold": ("plms", sd_fold["s_per_unet_call"] * 1e3,
+                           sd_fold["img_per_s"]),
+            "sd_v1_stream_w4": ("plms", sd_stream[4]["ms_per_unet_call"],
+                                sd_stream[4]["img_per_s"])}
+    base = {k: dict(zip(("sampler", "ms_per_unet_call", "img_per_s"), v))
+            for k, v in base.items()}
+    samplers = phase_samplers(task, sd, out, work, per_step, b4_per_step,
+                              spy, st, base, check)
+    sampler_paths = {k: r["launches"] for k, r in samplers.items()
+                     if k != "sampler_loops"}
+    for k in ("group_norm", "flash_attention", "flash_streaming",
+              "int8_conv", "int4_stream_matmul"):
+        check(sum(v[k] for v in sampler_paths.values()) > 0,
+              f"samplers: {k} not launched on any sampler path")
+    torch.cuda.empty_cache()
+
     # the LSUN latent-diffusion family, slice 11's paths: B1 and B2/B3 at
     # their shapes, each preset through every engine, then the beds W4A8
     # calibration
@@ -4324,7 +4607,8 @@ def main(argv=None) -> int:
                      (kernels[3], "int8_conv"),
                      (kernels[5], "int4_stream_matmul")):
         row.setdefault("launches_by_path", {}).update(
-            {p: v[key] for p, v in lsun_paths.items() if v[key]})
+            {p: v[key] for p, v in {**lsun_paths, **sampler_paths}.items()
+             if v[key]})
     kernels[0]["lsun"] = {
         r["where"]: {k: per_call_sum([x for x in gn_lsun
                                       if x["where"] == r["where"]], k)
@@ -4372,6 +4656,7 @@ def main(argv=None) -> int:
                            for n, r in lsun_spy_rows.items()},
               "gn_lsun": gn_lsun, "attn_lsun": attn_lsun, "lsun": lsun,
               "calib_lsun": calib_lsun, "lsun_profile": lsun_prof,
+              "samplers": samplers,
               "failed": check.failed,
               "launch_totals": {
                   "flash_attention": flash_attention.launches,

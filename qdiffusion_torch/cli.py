@@ -49,6 +49,21 @@ sim), stream (weight-only with integer weights resident on the card;
 --stream-convs also streams the convs the byte cost model picks). int8
 and stream ignore --dtype, as in the JAX package (cli.py:405-406).
 
+`sample --sampler` picks the sampler (default: the preset's): for the
+pixel tasks generalized (DDIM), ddpm_noisy (ancestral DDPM, its step
+noise from a generator seeded with --seed) or dpm_solver (DPM-Solver++,
+singlestep order 3 on the time-uniform grid, --timesteps model calls);
+for the latent tasks ddim, plms or dpm_solver (DPM-Solver++, multistep
+order 2, --timesteps UNet calls, CFG at --scale: txt2img's --dpm_solver):
+
+  python -m qdiffusion_torch.cli sample --task cifar10 \\
+      --qstate qstate.npz --weight-bit 4 --engine fold --dtype bfloat16 \\
+      --sampler dpm_solver --timesteps 20
+  python -m qdiffusion_torch.cli sample --task sd_v1 --ckpt unet.npz \\
+      --vae-ckpt vae.npz --clip-ckpt clip.npz --token-ids ids.npz \\
+      --qstate w4.npz --weight-bit 4 --engine stream --stream-convs \\
+      --sampler dpm_solver --timesteps 20 --n 1 --batch 1
+
 The LSUN presets run their DDIM: lsun_beds256 200 steps at eta 1 (a
 VQ-f4 decode), lsun_churches256 "400" steps at eta 0, which the
 reference's stride 1000 // 400 makes 500 UNet calls (a KL-f8 decode);
@@ -426,12 +441,11 @@ def cmd_sample(args) -> dict:
         else task.sampler.guidance_scale
     sampler = args.sampler or task.sampler.sample_type
     calls = [0]
-    if not pixel:
-        base_fn = model_fn or pipe.model_fn(qstate, mode)
+    base_fn = model_fn or pipe.model_fn(qstate, mode)
 
-        def model_fn(x, t, context=None):
-            calls[0] += 1
-            return base_fn(x, t, context)
+    def model_fn(x, t, *context):
+        calls[0] += 1
+        return base_fn(x, t, *context)
 
     images, batch_seconds, decode_seconds, model_calls = [], [], [], []
     nonfinite, idx = 0, 0
@@ -448,11 +462,11 @@ def cmd_sample(args) -> dict:
             x = pipe.sample(n, timesteps=steps,
                             skip_type=task.sampler.skip_type,
                             eta=task.sampler.eta, sample_type=sampler,
-                            generator=gen, qstate=qstate, mode=mode,
-                            x_init=x0, eval_dtype=eval_dtype,
+                            generator=gen, x_init=x0, eval_dtype=eval_dtype,
                             model_fn=model_fn)
             _sync(device)
             batch_seconds.append(time.perf_counter() - t0)
+            model_calls.append(calls[0])
             nonfinite += int((~torch.isfinite(x)).sum())
             imgs = inverse_data_transform(x.float())
         else:
@@ -488,10 +502,10 @@ def cmd_sample(args) -> dict:
           f"wrote {all_img.shape} -> {out}")
     res = {"path": str(out), "n": int(all_img.shape[0]), "steps": steps,
            "batch_seconds": batch_seconds, "nonfinite": nonfinite,
-           "engine": args.engine if args.qstate else None}
+           "engine": args.engine if args.qstate else None,
+           "sampler": sampler, "model_calls": model_calls}
     if not pixel:
-        res.update(decode_seconds=decode_seconds, model_calls=model_calls,
-                   sampler=sampler, guidance_scale=scale)
+        res.update(decode_seconds=decode_seconds, guidance_scale=scale)
     return res
 
 
@@ -528,8 +542,12 @@ def main(argv=None):
     sp.add_argument("--scale", type=float,
                     help="CFG guidance scale (default: task preset)")
     sp.add_argument("--sampler",
-                    help="sampler (default: task preset; latent tasks: "
-                         "ddim or plms)")
+                    help="sampler (default: task preset): pixel tasks "
+                         "generalized (DDIM), ddpm_noisy (ancestral DDPM) "
+                         "or dpm_solver (DPM-Solver++ singlestep order 3, "
+                         "--timesteps model calls); latent tasks ddim, "
+                         "plms or dpm_solver (DPM-Solver++ multistep order "
+                         "2, --timesteps UNet calls, CFG at --scale)")
     sp.add_argument("--qstate", help="calibrated qstate npz (JAX format)")
     add_quant_flags(sp)
     sp.add_argument("--engine", default="sim",

@@ -1,5 +1,6 @@
-"""Pixel-space DDIM sampling (port of qdiffusion_tpu/samplers/ddim.py,
-ddim_sample; reference ddim/functions/denoising.py:10-33).
+"""Pixel-space DDIM and ancestral DDPM sampling (port of
+qdiffusion_tpu/samplers/ddim.py: ddim_sample and ddpm_sample; reference
+ddim/functions/denoising.py:10-67, generalized_steps and ddpm_steps).
 
 A Python loop over the steps replaces the JAX lax.scan. Alpha lookups use
 the zero-padded beta cumprod at index t+1 (compute_alpha,
@@ -73,6 +74,51 @@ def ddim_sample(model_fn: ModelFn, x: torch.Tensor, seq: Sequence[int],
                                 dtype=x.dtype, device=x.device)
             x_next = x_next + float(c1) * noise
         x = x_next + float(c2) * et
+    if return_trajectory:
+        return x, {"xs": torch.stack(traj_x), "ts": torch.stack(traj_t)}
+    return x
+
+
+def ddpm_sample(model_fn: ModelFn, x: torch.Tensor, seq: Sequence[int],
+                betas: np.ndarray, *,
+                generator: Optional[torch.Generator] = None,
+                eval_dtype: Optional[torch.dtype] = None,
+                return_trajectory: bool = False
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, dict]]:
+    """Ancestral DDPM sampling (reference ddpm_steps, denoising.py:35-67;
+    JAX ddim.py:92-133): x0 clipped to [-1, 1], the posterior mean, then
+    noise at log-variance log(beta_t), none at t = 0. Each step's noise
+    is drawn from `generator` on x's device (at t = 0 too, multiplied by
+    the zero mask, as the JAX scan draws it). eval_dtype and
+    return_trajectory as in ddim_sample."""
+    ts, at, atm1 = _alpha_tables(np.asarray(betas, np.float64), seq)
+    one = np.float32(1.0)
+    if eval_dtype is not None:
+        x = x.float()
+    n = x.shape[0]
+    traj_x, traj_t = [], []
+    for t, a, am1 in zip(ts, at, atm1):
+        tb = torch.full((n,), float(t), dtype=torch.float32, device=x.device)
+        if return_trajectory:
+            traj_x.append(x)
+            traj_t.append(tb)
+        e = (model_fn(x, tb) if eval_dtype is None else
+             model_fn(x.to(eval_dtype), tb).to(x.dtype))
+        # f32 scalar tables, computed as the JAX scan computes them
+        beta_t = one - a / am1
+        x0 = torch.clamp(float(np.sqrt(one / a)) * x
+                         - float(np.sqrt(one / a - one)) * e, -1.0, 1.0)
+        mean = (float(np.sqrt(am1) * beta_t) * x0
+                + float(np.sqrt(one - beta_t) * (one - am1)) * x) \
+            / float(one - a)
+        noise = torch.randn(x.shape, generator=generator, dtype=x.dtype,
+                            device=x.device)
+        mask = np.float32(t != 0)
+        # a timestep the quad sequence repeats has beta_t = 0: log -inf,
+        # no noise (as in the JAX scan)
+        with np.errstate(divide="ignore"):
+            sd = mask * np.exp(np.float32(0.5) * np.log(beta_t))
+        x = mean + float(sd) * noise
     if return_trajectory:
         return x, {"xs": torch.stack(traj_x), "ts": torch.stack(traj_t)}
     return x

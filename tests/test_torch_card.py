@@ -1170,3 +1170,105 @@ def test_vq_codes_on_card_match_cpu(card):
                                            (eb ** 2).sum(1))
     assert bool((gap <= 1e-4 * size).all())
     assert at.numel() <= 1e-3 * codes[0].numel()
+
+
+# -- the samplers: DPM-Solver(++) and ancestral DDPM --------------------------
+
+class _PerCall:
+    """A model function that records, per call, the launches of B1 and B2
+    it made and the timesteps it saw."""
+
+    def __init__(self, fn):
+        from qdiffusion_torch.ops.flash_attention import flash_attention
+
+        self.fn, self.b2, self.calls = fn, flash_attention, []
+
+    def __call__(self, x, t, *context):
+        b1, b2 = fused_group_norm.launches, self.b2.launches
+        out = self.fn(x, t, *context)
+        self.calls.append((fused_group_norm.launches - b1,
+                           self.b2.launches - b2, t.clone()))
+        return out
+
+
+@pytest.mark.parametrize("sampler,steps", [("dpm_solver", 6),
+                                           ("ddpm_noisy", 4)])
+def test_cifar_fold_new_samplers_on_card(card, sampler, steps):
+    """The full-width CIFAR UNet under fold W4 (f32) through the pixel
+    pipeline: one UNet call per solver evaluation (singlestep order 3 at
+    6 steps plans [3, 3]), each launching B1 at its 51 GroupNorms as a
+    DDIM step does, finite samples; DPM-Solver's fractional model times
+    reach the card unrounded, and its samples match the CPU's within 1e-3
+    relative L2 (f32 both, sum order only)."""
+    from qdiffusion_torch import cli, resolve_device
+    from qdiffusion_torch.calib.engine import init_weight_qstate
+    from qdiffusion_torch.config import PRESETS, QuantFlags
+    from qdiffusion_torch.deploy import make_quantized_step
+    from qdiffusion_torch.models.unet_ddim import DDIMUNet
+    from qdiffusion_torch.pipelines import PixelDiffusionPipeline
+
+    resolve_device(card)
+    task = PRESETS["cifar10"]
+    models = []
+    for dev in ("cpu", card):
+        m = DDIMUNet(task.unet_ddim, QuantFlags(weight_bit=4).policy_ddim(),
+                     device=dev)
+        m.load_state_dict(m.init_params(0) if dev == "cpu"
+                          else models[0].state_dict())
+        models.append(m)
+    q = init_weight_qstate(models[1])
+    x0 = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32))
+    out = {}
+    for dev, m in zip(("cpu", card), models):
+        step = _PerCall(make_quantized_step(m, {
+            s: {k: {n: v.to(dev) for n, v in st.items()}
+                for k, st in sl.items()} for s, sl in q.items()},
+            engine="fold"))
+        out[str(dev)] = PixelDiffusionPipeline(m, cli._schedule(task)).sample(
+            2, timesteps=steps, sample_type=sampler, x_init=x0.to(dev),
+            generator=torch.Generator(device=dev).manual_seed(0),
+            model_fn=step).cpu()
+    assert len(step.calls) == steps
+    assert {(b1, b2) for b1, b2, _ in step.calls} == {(51, 0)}
+    got, want = out[str(card)], out["cpu"]
+    assert bool(torch.isfinite(got).all()) and got.shape == (2, 32, 32, 3)
+    if sampler == "dpm_solver":
+        assert any(float(t[0]) != round(float(t[0]))
+                   for _, _, t in step.calls)
+        assert float(_rel_l2(got, want)) <= 1e-3
+
+
+def test_tiny_sd_fold_dpm_solver_on_card(card):
+    """SD_TINY under fold W4 (f32) through the latent pipeline's
+    DPM-Solver at 2 steps with CFG 7.5: two UNet calls on [uncond; cond],
+    each launching B2 at its four 64-token self-attentions and B1 as the
+    first did; the latents match the CPU's within 1e-3 relative L2."""
+    from qdiffusion_torch import cli, resolve_device
+    from qdiffusion_torch.calib.engine import init_weight_qstate
+    from qdiffusion_torch.config import PRESETS
+    from qdiffusion_torch.deploy import make_quantized_step
+    from qdiffusion_torch.pipelines import LatentDiffusionPipeline
+
+    resolve_device(card)
+    models = _tiny_sd(card, weight_bit=4)
+    q = init_weight_qstate(models[0])
+    x, _, c = _sd_data(4)
+    out = {}
+    for dev, m in zip(("cpu", card), models):
+        step = _PerCall(make_quantized_step(m, {
+            s: {k: {n: v.to(dev) for n, v in st.items()}
+                for k, st in sl.items()} for s, sl in q.items()},
+            engine="fold"))
+        pipe = LatentDiffusionPipeline(
+            unet=m, vae=None, schedule=cli._schedule(PRESETS["sd_v1"]))
+        out[str(dev)] = pipe.sample(
+            2, sampler="dpm_solver", steps=2, cond=c[:2].to(dev),
+            uncond=c[2:].to(dev), guidance_scale=7.5, decode=False,
+            x_init=x[:2].to(dev), model_fn=step).cpu()
+    assert len(step.calls) == 2
+    assert step.calls[0][1] == 4 and step.calls[0][0] > 0
+    assert all(c[:2] == step.calls[0][:2] for c in step.calls)
+    got = out[str(card)]
+    assert bool(torch.isfinite(got).all())
+    assert float(_rel_l2(got, out["cpu"])) <= 1e-3
