@@ -1,17 +1,28 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port (qdiffusion_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out DIR] [--profile]
+    python3 chip_smoke.py [--out DIR] [--profile] [--quality-only]
 
 Builds the port's CUDA kernels (nvcc, one process per source, started
 together) into qdiffusion_torch/_build/, then drives the main paths of
 every ported slice through the entry points a user calls and holds
 every kernel of them against its plain PyTorch version:
 
-  First the GroupNorm shapes of a CIFAR step (batch 1, spy) and of an SD
-  UNet call and decode (phase 6's spy), then `designs`: every kernel
-  whose design a check reads is launched once under torch.profiler before
-  any CUDA graph exists in the process.
+  The `quality` phase starts first, in a process of its own
+  (`chip_smoke.py --quality-only`, report in DIR/quality/): it is
+  host-bound and small on the card. Beside it run the build, the spies
+  and `designs`, the SD files and sd_card_vs_cpu (8), which report no
+  time, then calib, calib_act and export. The smoke then waits for the
+  quality report and runs every other phase after it, alone, in the
+  order below (1-4, 5-7, 9, calib_sd, 10-13, the samplers, LSUN, P).
+  Every phase row emitted before the join is tagged `beside_quality`
+  (its seconds shared the card and the host), and the quality row lists
+  them (`beside`).
+  First the GroupNorm shapes of a CIFAR step (batch 1, spy), of a TINY
+  call of the quality harness and of an SD UNet call and decode (phase
+  6's spy), then `designs`: every kernel whose design a check reads is
+  launched once under torch.profiler before any CUDA graph exists in the
+  process.
   CIFAR-10 (DDIMUNetConfig(), full width):
   1. kernels  - GroupNorm kernel B1 at every GroupNorm shape of the UNet
                 at batch 64, bf16 and f32 (error, kernel / plain /
@@ -67,6 +78,28 @@ every kernel of them against its plain PyTorch version:
                 --split` on the calibrated qstate, 64 images (B4 100 x 113
                 and B1 100 x 51 launches), and the int8 eps of 8 held
                 inputs against the FP eps, calibrated and init-only deltas.
+  export      - `deploy.export_quantized_checkpoint` of the calib phase's
+                W4 --split qstate (38 units) and its seeded params, then
+                `load_quantized_checkpoint` of the file on the card: its
+                bytes under a quarter of the f32 params' (the JAX bound),
+                the reloaded quantized weights equal to `fold_weights`' bit
+                for bit, one f32 step at batch 64 of the reloaded model
+                within rtol = atol = 2e-3 of the fold engine's (fp16
+                biases), B1 launched in both.
+  quality     - `qdiffusion_torch/scripts/quality_evidence.py::
+                run_protocol` at the JAX test's settings (2,500 training
+                steps of the TINY UNet at batch 128, 384 samples, DDIM-50,
+                1,000 reconstruction iterations, 48 x 5 calibration rows,
+                W4 and W4A8): the test's five FID bounds; B1 launches
+                around every part and, by engine spies, inside captures,
+                act inits, the EMA sweep and reconstructions: 0 in
+                training and in every reconstruction, launched in every
+                sampling arm, capture, act init and the sweep; every
+                reconstruction's block error before and after, the act
+                deltas below the lr; B1 against its plain version at every
+                distinct shape the spy saw (f32); after the join, B1
+                timed at the sampling call's shapes (probed with the
+                others up front) in the smoke's own process.
   Stable Diffusion v1 (sd_v1 preset, full width, seeded random weights
   with no zero-initialised branch; no checkpoint or vocabulary needed):
   5. attn_kernels - B2 (flash_attention) at (8, 4096, 8, 40) and
@@ -265,6 +298,7 @@ Needs CUDA: without a card it exits non-zero before any work.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import shutil
 import sys
@@ -353,10 +387,20 @@ SDC_FLIP_SHAPE = (2, 4096, 8, 40)  # B2 with the 16-bit softmax quantizer
 T_START = time.perf_counter()
 
 
+# the phases whose lines were emitted while the quality process ran,
+# None when it does not run
+BESIDE_QUALITY = None
+
+
 def _emit(obj: dict):
     """One JSON line; a phase's line also gets `wall_s`, the seconds since
-    the script started, so the gaps between lines time the phases."""
+    the script started, so the gaps between lines time the phases. While
+    the quality process runs, a phase's dict (which the report keeps) is
+    tagged `beside_quality`: its seconds shared the card and the host."""
     if "phase" in obj:
+        if BESIDE_QUALITY is not None:
+            obj["beside_quality"] = True
+            BESIDE_QUALITY.append(obj["phase"])
         obj = {**obj, "wall_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
@@ -1455,6 +1499,361 @@ def _calib_act_int8(task, work: Path, qpath: str, init_q: dict,
             "image_mean": float(imgs.mean()), "image_std": float(imgs.std()),
             "eps_rel_l2_vs_fp": {"calibrated": rel(calibrated),
                                  "init_only": rel(init_q)}}
+
+
+# -- quantized-checkpoint export / load (slice 13) ----------------------------
+
+EXPORT_TOL = dict(rtol=2e-3, atol=2e-3)  # tests/test_export.py: fp16 biases
+
+
+def phase_export(task, work: Path, smi: str, check: Checks) -> dict:
+    """`deploy.export_quantized_checkpoint` of the calib phase's
+    full-width W4 --split qstate and its seeded params, then
+    `load_quantized_checkpoint` of that file on the card: its bytes
+    against the f32 params' (JAX's bound: under a quarter), the reloaded
+    quantized weights against `fold_weights`' bit for bit, and one f32
+    step at batch 64 of the reloaded model against the fold engine's
+    (rtol = atol = 2e-3), B1 launched in both."""
+    from qdiffusion_torch.deploy import export_quantized_checkpoint, \
+        fold_weights, load_quantized_checkpoint, make_quantized_step
+    from qdiffusion_torch.models.unet_ddim import DDIMUNet
+    from qdiffusion_torch.ops.groupnorm import fused_group_norm as gn
+    from qdiffusion_torch.utils.checkpoints import load_qstate
+
+    model = _seeded_model(task, weight_bit=4, split=True)
+    # init_params zeroes every bias, which fp16 holds exactly: seeded
+    # biases make the /fp16 leaves round (the qstate's weights stay)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    with torch.no_grad():
+        for name, v in model.state_dict().items():
+            if name.endswith(".bias"):
+                v.add_(0.02 * torch.randn(v.shape, generator=gen,
+                                          device="cuda"))
+    qstate = load_qstate(work / "calib" / "run" / "qstate.npz", "cuda")
+    path = work / "export" / "w4.npz"
+    gn.launches = 0
+    t0 = time.perf_counter()
+    manifest = export_quantized_checkpoint(model, qstate, path)
+    export_s = time.perf_counter() - t0
+    f32_bytes = 4 * sum(p.numel() for p in model.state_dict().values())
+    file_bytes = path.stat().st_size
+    check(file_bytes < f32_bytes / 4, f"export: {file_bytes} bytes, not "
+          f"under a quarter of the f32 params' {f32_bytes}")
+    want_layers = [n for n in model.layer_cfgs if "w" in qstate.get(n, {})]
+    check(sorted(manifest) == sorted(want_layers),
+          f"export: manifest {len(manifest)} layers, qstate "
+          f"{len(want_layers)}")
+    check(len(model.units) == 38 and any(v["split"]
+                                         for v in manifest.values()),
+          f"export: {len(model.units)} units, split layers "
+          f"{sum(bool(v['split']) for v in manifest.values())}")
+    t0 = time.perf_counter()
+    sd, loaded = load_quantized_checkpoint(path)
+    sd = {k: v.to("cuda") for k, v in sd.items()}
+    load_s = time.perf_counter() - t0
+    check(loaded == json.loads(json.dumps(manifest)),
+          "export: the file's manifest is not the one returned")
+    folded = fold_weights(model, qstate)
+    differ = [n for n in manifest if not torch.equal(
+        sd[f"{n}.weight"], folded[f"{n}.weight"])]
+    check(not differ, f"export: reloaded weights differ from fold_weights' "
+                      f"at {differ}")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn((BATCH, 32, 32, 3), generator=gen, device="cuda")
+    t = torch.linspace(0, 999, BATCH, device="cuda")
+    b0 = gn.launches
+    want = make_quantized_step(model, qstate, "fold")(x, t)
+    fold_launches = gn.launches - b0
+    reloaded = DDIMUNet(model.cfg, model.policy, device="cuda")
+    reloaded.load_state_dict(sd)
+    b0 = gn.launches
+    with torch.no_grad():
+        got = reloaded(x, t)
+    reload_launches = gn.launches - b0
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, **EXPORT_TOL))
+    check(ok, f"export: reloaded step max abs err {err} over {EXPORT_TOL}")
+    check(fold_launches == 51 and reload_launches == 51,
+          f"export: B1 launches {fold_launches} (fold), {reload_launches} "
+          "(reloaded), expected 51 each")
+    row = {"phase": "export", "nvidia_smi": smi,
+           "layers": len(manifest), "units": len(model.units),
+           "file_bytes": file_bytes, "f32_param_bytes": f32_bytes,
+           "bytes_ratio": file_bytes / f32_bytes,
+           "int4_layers": sum(v["bits"] <= 4 for v in manifest.values()),
+           "export_s": export_s, "load_s": load_s,
+           "bit_equal_layers": len(manifest) - len(differ),
+           "fp16_rounded_biases": sum(
+               not torch.equal(sd[k], v) for k, v in
+               model.state_dict().items() if k.endswith(".bias")),
+           "step_max_abs_err": err, "step_tolerance": EXPORT_TOL,
+           "step_rel_l2": float(torch.linalg.vector_norm(got - want)
+                                / torch.linalg.vector_norm(want)),
+           "b1_launches": gn.launches}
+    _emit(row)
+    return row
+
+
+# -- the quality-evidence harness (slice 13) ----------------------------------
+
+# tests/test_quality_evidence.py:46-48, the JAX test's settings (not cut)
+QUALITY = dict(train_steps=2500, n_samples=384, recon_iters=1000, bits=4,
+               sample_steps=50, cali_n=48, cali_st=5, seed=0,
+               act_quant=True)
+
+
+def quality_gn_shapes() -> list:
+    """(B, H, W, C) of every GroupNorm input of one call of the harness's
+    TINY UNet at its sampling batch, in call order."""
+    from qdiffusion_torch.models.unet_ddim import DDIMUNet
+    from qdiffusion_torch.scripts import quality_evidence as qe
+
+    model = DDIMUNet(qe.CFG, device="cuda")
+    with gn_spy() as spy, torch.no_grad():
+        model(torch.zeros(1, qe.RES, qe.RES, 3, device="cuda"),
+              torch.zeros(1, device="cuda"))
+    return [(QUALITY["n_samples"],) + s[1:] for _, s in spy.seen]
+
+
+def phase_quality(smi: str, check: Checks) -> dict:
+    """`run_protocol` of qdiffusion_torch/scripts/quality_evidence.py at
+    the JAX test's settings (QUALITY), held to that test's five bounds.
+    B1's launches are read around every part of the protocol and, by
+    spies in the engine, around its captures, act init, EMA sweep and
+    reconstructions: 0 in training and in every reconstruction, launched
+    in every sampling arm, the captures, the act inits and the sweep.
+    Every reconstruction's block error on its captured inputs is printed
+    (weight pass: nearest rounding and learned; act pass: init/EMA deltas
+    and learned, with the deltas below the lr). Then B1 against its plain
+    version at every distinct shape the spy saw, f32. (B1's time at the
+    sampling call's shapes is taken by the caller, `quality_gn_time`.)"""
+    from qdiffusion_torch.calib import capture, engine
+    from qdiffusion_torch.ops.groupnorm import fused_group_norm as gn, \
+        group_norm_plain
+    from qdiffusion_torch.scripts import quality_evidence as qe
+
+    parts: dict = {}
+    sub = {k: 0 for k in ("fp_capture", "quant_capture", "act_init",
+                          "ema_sweep", "reconstructions")}
+    units = []
+    real = (engine.reconstruct_unit, engine.init_act_qstate,
+            engine.run_running_stat, capture.GroupedCapture.fp_capture,
+            capture.GroupedCapture.quant_capture)
+
+    @contextlib.contextmanager
+    def part(name):
+        b0 = gn.launches
+        yield
+        parts[name] = gn.launches - b0
+
+    def counted(key, fn):
+        def spy(*a, **kw):
+            b0 = gn.launches
+            res = fn(*a, **kw)
+            sub[key] += gn.launches - b0
+            return res
+        return spy
+
+    def recon_spy(model, qstate, unit, inps, target, cfg, **kw):
+        acts = kw.get("act_quant", False)
+        start = qstate if acts else _nearest(qstate, unit)
+        b0 = gn.launches
+        before = _block_mse(unit, start, inps, target, acts=acts)
+        b1 = gn.launches
+        new = real[0](model, qstate, unit, inps, target, cfg, **kw)
+        b2 = gn.launches
+        after = _block_mse(unit, new, inps, target, acts=acts)
+        sub["reconstructions"] += b2 - b1
+        units.append({"pass": "act" if acts else "weight",
+                      "unit": unit.name, "kind": unit.kind,
+                      "mse_before": before, "mse_after": after,
+                      "ratio": after / before if before else None,
+                      "recon_b1_launches": b2 - b1,
+                      "error_b1_launches": (b1 - b0) + (gn.launches - b2)})
+        return new
+
+    engine.reconstruct_unit = recon_spy
+    engine.init_act_qstate = counted("act_init", real[1])
+    engine.run_running_stat = counted("ema_sweep", real[2])
+    capture.GroupedCapture.fp_capture = counted("fp_capture", real[3])
+    capture.GroupedCapture.quant_capture = counted("quant_capture", real[4])
+    stats, lines = {}, []
+
+    def log(msg):  # the protocol's progress, to stderr as it goes
+        lines.append(msg)
+        print(f"quality {time.perf_counter() - T_START:8.1f} s: {msg}",
+              file=sys.stderr, flush=True)
+
+    gn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with gn_spy() as spy:
+            out = qe.run_protocol(**QUALITY, log=log, device="cuda",
+                                  stats=stats, part=part)
+    finally:
+        (engine.reconstruct_unit, engine.init_act_qstate,
+         engine.run_running_stat, capture.GroupedCapture.fp_capture,
+         capture.GroupedCapture.quant_capture) = real
+    wall_s = time.perf_counter() - t0
+    # the block-error sweeps run inside the calibration parts
+    error_launches = sum(r["error_b1_launches"] for r in units)
+    path_launches = gn.launches - error_launches
+
+    bounds = {
+        "fid_naive > 3 fid_fp": out["fid_naive"] > 3 * out["fid_fp"],
+        "fid_calib < 0.5 fid_naive":
+            out["fid_calib"] < 0.5 * out["fid_naive"],
+        "recovered_frac > 0.4": out["recovered_frac"] > 0.4,
+        "fid_calib_a8 < fid_naive_a8":
+            out["fid_calib_a8"] < out["fid_naive_a8"],
+        "fid_calib_a8 < 0.6 fid_naive":
+            out["fid_calib_a8"] < 0.6 * out["fid_naive"]}
+    for what, ok in bounds.items():
+        check(ok, f"quality: {what} fails: {out}")
+    check(all(np.isfinite(v) for v in out.values()
+              if isinstance(v, float)), f"quality: non-finite {out}")
+    check(parts.get("train") == 0,
+          f"quality: B1 launched {parts.get('train')} times in training")
+    check(sub["reconstructions"] == 0, f"quality: B1 launched "
+          f"{sub['reconstructions']} times inside the reconstructions")
+    for name in ("sample_fp", "sample_naive", "sample_calib", "naive_a8",
+                 "sample_naive_a8", "sample_calib_a8"):
+        check(parts.get(name, 0) > 0, f"quality: B1 not launched in {name}")
+    for name in ("fp_capture", "quant_capture", "act_init", "ema_sweep"):
+        check(sub[name] > 0, f"quality: B1 not launched in {name}")
+    passes = {p: sum(r["pass"] == p for r in units) for p in ("weight",
+                                                               "act")}
+    check(passes["weight"] > 0 and passes["act"] > 0,
+          f"quality: reconstructions {passes}")
+
+    # B1 against its plain version at every distinct shape it ran at
+    seen = sorted({s for _, s in spy.seen})
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    worst = 0.0
+    for shape in seen:
+        c = shape[-1]
+        x = torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5
+        scale = 1.0 + 0.5 * torch.randn(c, generator=gen, device="cuda")
+        bias = 0.5 * torch.randn(c, generator=gen, device="cuda")
+        y, ref = gn(x, scale, bias), group_norm_plain(x, scale, bias)
+        err = float((y - ref).abs().max())
+        worst = max(worst, err)
+        check(bool(torch.allclose(y, ref, **TOL[torch.float32])),
+              f"quality: group_norm {shape}: max abs err {err}")
+    below = stats.get("deltas_below_lr", {})
+    row = {"phase": "quality", "nvidia_smi": smi, "settings": QUALITY,
+           **out, "bounds": bounds, "seconds": stats["seconds"],
+           "wall_s_protocol": wall_s,
+           "peak_device_gb": stats.get("peak_device_gb"),
+           "train_loss": stats.get("train_loss"),
+           "deltas_below_lr": {u: s for u, s in below.items() if s},
+           "act_units": len(below),
+           "b1_launches": {"parts": parts, "engine": sub,
+                           "block_error_sweeps": error_launches,
+                           "path": path_launches},
+           "b1_shapes": [list(s) for s in seen],
+           "b1_max_abs_err": worst,
+           "reconstructions": {
+               p: {"units": passes[p], "worst_ratio": max(
+                   (r["ratio"] for r in units
+                    if r["pass"] == p and r["ratio"] is not None),
+                   default=None)} for p in passes},
+           "below_lr_act_ratios": {r["unit"]: r["ratio"] for r in units
+                                   if r["pass"] == "act"
+                                   and below.get(r["unit"])}}
+    _emit(row)
+    for r in units:
+        _emit({"phase": "quality_unit", **r})
+    row["units"], row["log"] = units, lines
+    return row
+
+
+def quality_gn_time(gn_call: list, designs: dict, check: Checks) -> dict:
+    """B1 at the GroupNorm shapes of one TINY sampling call of the
+    quality phase, f32, as in 1: per-call sums of the rows."""
+    rows = phase_kernels(gn_call, check, designs, dtypes=(torch.float32,),
+                         phase="gn_quality",
+                         where=f"quality TINY UNet call, batch "
+                               f"{QUALITY['n_samples']}")
+    return {**{k: sum(r[k] * r["per_call"] for r in rows)
+               for k in ("ms", "plain_ms", "library_ms", "bytes_ms",
+                         "ops_ms")},
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "rows": rows}
+
+
+def start_quality(out: Path):
+    """The quality phase in a process of its own (`--quality-only`),
+    started before the build: it is host-bound and holds under 1 GB of
+    the card. Inline it would add about 230 s to a smoke near 870 s, and
+    beside the phases that report no time alone the smoke waited 109 s
+    for it (PERF.md section 4), so the CIFAR calibration phases run
+    beside it too; every phase emitted until the join is tagged (_emit).
+    Its report lands in out/quality."""
+    global BESIDE_QUALITY
+    import subprocess
+
+    BESIDE_QUALITY = []
+    qdir = out / "quality"
+    qdir.mkdir(parents=True, exist_ok=True)
+    (qdir / "quality.json").unlink(missing_ok=True)
+    logs = [open(qdir / name, "w") for name in ("stdout.txt", "stderr.txt")]
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--quality-only",
+         "--out", str(qdir)], stdout=logs[0], stderr=logs[1],
+        cwd=str(Path(__file__).resolve().parent))
+    return proc, qdir, logs
+
+
+def join_quality(started, smi: str, check: Checks,
+                 timeout: float = 700.0) -> dict:
+    """Wait for the quality process and read its report; a report that
+    is missing or names failed checks fails here. The report's row names
+    the phases that ran beside it (`beside`)."""
+    global BESIDE_QUALITY
+    proc, qdir, logs = started
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for f in logs:
+            f.close()
+    waited = time.perf_counter() - t0
+    beside = sorted(set(BESIDE_QUALITY or []))
+    BESIDE_QUALITY = None
+    path = qdir / "quality.json"
+    if not path.exists():
+        tail = (qdir / "stderr.txt").read_text()[-3000:]
+        check(False, f"quality: no report (exit {proc.returncode}): {tail}")
+        return {"b1_launches": {"path": 0}, "failed": ["no report"]}
+    row = json.loads(path.read_text())
+    for what in row.get("failed", []):
+        check(False, what)
+    check(rc == 0, f"quality: process exit {rc}")
+    row["beside"] = beside
+    _emit({**{k: v for k, v in row.items() if k not in ("units", "log")},
+           "phase": "quality", "nvidia_smi": smi, "waited_s": waited})
+    return row
+
+
+def quality_only(out: Path) -> int:
+    """`chip_smoke.py --quality-only`: the quality phase alone, its
+    report (with the checks that failed) to out/quality.json; exit 1 if
+    a check failed."""
+    from qdiffusion_torch import resolve_device
+
+    resolve_device("cuda")
+    out.mkdir(parents=True, exist_ok=True)
+    check = Checks()
+    smi = nvidia_smi()
+    row = phase_quality(smi, check)
+    row["failed"] = check.failed
+    (out / "quality.json").write_text(json.dumps(row, indent=1))
+    print(smi, flush=True)
+    return 1 if check.failed else 0
 
 
 # -- Stable Diffusion v1 ------------------------------------------------------
@@ -4318,6 +4717,9 @@ def main(argv=None) -> int:
     p.add_argument("--work", default=str(root / "runs" / "chip_smoke_work"),
                    help="the SD weight files (about 4.5 GB), removed at "
                         "the end")
+    p.add_argument("--quality-only", action="store_true",
+                   help="run only the quality phase (the full smoke runs "
+                        "it so, in a process of its own)")
     p.add_argument("--profile", action="store_true",
                    help="add torch.profiler breakdowns of a CIFAR fold "
                         "step, an SD fold UNet call, a CIFAR int8 step, "
@@ -4328,6 +4730,21 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "runs only on an NVIDIA GPU", file=sys.stderr)
         return 2
+    if args.quality_only:
+        return quality_only(Path(args.out))
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    quality_proc = start_quality(out)
+    try:
+        return _smoke(args, out, quality_proc)
+    finally:
+        proc = quality_proc[0]
+        if proc.poll() is None:  # a phase raised before the join
+            proc.kill()
+            proc.wait()
+
+
+def _smoke(args, out: Path, quality_proc) -> int:
     from qdiffusion_torch import resolve_device
     from qdiffusion_torch.config import PRESETS
     from qdiffusion_torch.ops import _cuda
@@ -4336,8 +4753,7 @@ def main(argv=None) -> int:
         streaming_flash_attention
 
     t_start = time.perf_counter()
-    out, work = Path(args.out), Path(args.work)
-    out.mkdir(parents=True, exist_ok=True)
+    work = Path(args.work)
     work.mkdir(parents=True, exist_ok=True)
     check = Checks()
     resolve_device("cuda")  # pins cudnn / matmul TF32 off
@@ -4373,6 +4789,7 @@ def main(argv=None) -> int:
                              "expected 51")
     per_step = len(shapes)
     cifar_gn = [(BATCH,) + s[1:] for s in shapes]
+    quality_shapes = quality_gn_shapes()
     sd = PRESETS["sd_v1"]
     spy = phase_sd_spy(sd, check)
     torch.cuda.empty_cache()
@@ -4383,7 +4800,7 @@ def main(argv=None) -> int:
         for name, r in lsun_spy_rows.items()}
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    designs = probe_designs(cifar_gn + spy["unet_gn_shapes"]
+    designs = probe_designs(cifar_gn + quality_shapes + spy["unet_gn_shapes"]
                             + spy["decode_gn_shapes"] + [
                                 s for r in lsun_gn_bsc.values()
                                 for v in r.values() for s in v], [
@@ -4392,6 +4809,28 @@ def main(argv=None) -> int:
                                 for m in r["b6_shapes"]])
     _emit({"phase": "designs", "probed": len(designs),
            "seconds": time.perf_counter() - t0})
+
+    # beside the quality process (their rows tagged): slice 10's inputs
+    # and the SD card-vs-CPU check, which time nothing, then the CIFAR-10
+    # calibration, slice 8's path: the AdaRound weight pass
+    files = phase_sd_files(sd, work, check)
+    sd_cpu = phase_sd_card_vs_cpu(sd, work, check)
+    torch.cuda.empty_cache()
+    calib = phase_calib(task, work, smi, check)
+    torch.cuda.empty_cache()
+    # slice 9's path: the activation pass on its qstate, then int8
+    calib_act = phase_calib_act(task, work, smi, check)
+    for name, n in calib_act["int8"]["launches"].items():
+        check(n > 0, f"calib_act int8 sample: {name} not launched")
+    torch.cuda.empty_cache()
+    # slice 13's path: the calib phase's W4 qstate exported and reloaded
+    export = phase_export(task, work, smi, check)
+    torch.cuda.empty_cache()
+    # slice 13's path: the quality evidence at the JAX test's settings,
+    # run in its own process since the start; every phase from here on
+    # has the card and the host to itself
+    quality = join_quality(quality_proc, smi, check)
+    quality_gn = quality_gn_time(quality_shapes, designs, check)
 
     # CIFAR-10, slice 1's path
     rows = phase_kernels(cifar_gn, check, designs,
@@ -4403,24 +4842,13 @@ def main(argv=None) -> int:
     prof = phase_profile(task, out) if args.profile else None
     torch.cuda.empty_cache()
 
-    # CIFAR-10 calibration, slice 8's path: the AdaRound weight pass
-    calib = phase_calib(task, work, smi, check)
-    torch.cuda.empty_cache()
-    # slice 9's path: the activation pass on its qstate, then int8
-    calib_act = phase_calib_act(task, work, smi, check)
-    for name, n in calib_act["int8"]["launches"].items():
-        check(n > 0, f"calib_act int8 sample: {name} not launched")
-    torch.cuda.empty_cache()
-
     # Stable Diffusion v1, slice 2's path
     gn_unet = phase_kernels(spy["unet_gn_shapes"], check, designs,
                             phase="gn_sd", where="sd_v1 UNet call")
     gn_dec = phase_kernels(spy["decode_gn_shapes"], check, designs,
                            phase="gn_sd", where="sd_v1 VAE decode")
     attn = phase_attn_kernels(check, designs)
-    files = phase_sd_files(sd, work, check)
     sd_fold = phase_sd_fold_cli(sd, work, spy, check)
-    sd_cpu = phase_sd_card_vs_cpu(sd, work, check)
     sd_sim = phase_sd_sim(sd, work, check)
     # slice 10's path: the latent models' calibration
     torch.cuda.empty_cache()
@@ -4525,7 +4953,14 @@ def main(argv=None) -> int:
              "cifar10_calib_act": calib_act["b1_launches"]["path"],
              "sd_v1_calib": calib_sd["path_launches"]["group_norm"],
              "sd_v1_stream_w4": sd_stream[4]["launches"]["group_norm"],
-             "sd_v1_stream_w8": sd_stream[8]["launches"]["group_norm"]},
+             "sd_v1_stream_w8": sd_stream[8]["launches"]["group_norm"],
+             "quality": quality["b1_launches"]["path"],
+             "export": export["b1_launches"]},
+         "quality_sampling_call": {
+             **{k: v for k, v in quality_gn.items() if k != "rows"},
+             "per": f"the {len(quality_shapes)} GroupNorms of one TINY "
+                    f"f32 UNet call at batch {QUALITY['n_samples']}; CUDA "
+                    "graph"},
          "cifar10_step_ms": per_call_sum(rows, "ms"),
          "cifar10_step_bound_ms": max(per_call_sum(rows, "bytes_ms"),
                                       per_call_sum(rows, "ops_ms"))},
@@ -4656,7 +5091,8 @@ def main(argv=None) -> int:
                            for n, r in lsun_spy_rows.items()},
               "gn_lsun": gn_lsun, "attn_lsun": attn_lsun, "lsun": lsun,
               "calib_lsun": calib_lsun, "lsun_profile": lsun_prof,
-              "samplers": samplers,
+              "samplers": samplers, "export": export, "quality": quality,
+              "gn_quality": quality_gn["rows"],
               "failed": check.failed,
               "launch_totals": {
                   "flash_attention": flash_attention.launches,

@@ -237,11 +237,18 @@ def reconstruct_unit(model, qstate: dict, unit,
     if not train0:
         return qstate
     if act_quant:
+        # every act-pass unit logs its record (a warning when a delta is
+        # below the lr); `extra` carries the list for a handler to read
         small = deltas_below_lr(qstate, unit, cfg.lr, sm_abit)
+        extra = {"unit": unit.name, "deltas_below_lr": small}
         if small:
             logger.warning("%s: act deltas %s are below the learning rate "
                            "%g; the first Adam steps move them by more "
-                           "than their size", unit.name, small, cfg.lr)
+                           "than their size", unit.name, small, cfg.lr,
+                           extra=extra)
+        else:
+            logger.debug("%s: no act delta below the learning rate %g",
+                         unit.name, cfg.lr, extra=extra)
     dev = cached_out.device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)

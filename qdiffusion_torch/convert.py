@@ -42,7 +42,9 @@ def as_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def _permute(a: torch.Tensor, to_torch: bool) -> torch.Tensor:
+def permute_layout(a: torch.Tensor, to_torch: bool) -> torch.Tensor:
+    """A weight-shaped tensor from the JAX layout (HWIO, LIO, (in, out))
+    to torch's (to_torch) or back; other ranks pass through."""
     perm = _TO_TORCH.get(a.ndim)
     if perm is None:
         return a
@@ -63,7 +65,7 @@ def from_jax_params(params: dict) -> dict:
                 continue
             t = as_tensor(v)
             if k == "w":
-                sd[f"{prefix}.weight"] = _permute(t, to_torch=True)
+                sd[f"{prefix}.weight"] = permute_layout(t, to_torch=True)
             elif k == "b":
                 sd[f"{prefix}.bias"] = t
             elif k == "scale":
@@ -89,7 +91,8 @@ def _jax_key(k: str, state_dict: dict):
     return k, False
 
 
-def _assign(tree: dict, dotted: str, value):
+def assign_dotted(tree: dict, dotted: str, value):
+    """tree[a][b][c] = value for dotted 'a.b.c', making the dicts."""
     node = tree
     parts = dotted.split(".")
     for p in parts[:-1]:
@@ -108,7 +111,7 @@ def jax_param_shapes(state_dict: dict) -> dict:
         if perm and v.ndim in _TO_TORCH:
             inv = np.argsort(_TO_TORCH[v.ndim])
             shape = tuple(shape[i] for i in inv)
-        _assign(tree, key, np.broadcast_to(np.float32(0), shape))
+        assign_dotted(tree, key, np.broadcast_to(np.float32(0), shape))
     return tree
 
 
@@ -118,8 +121,8 @@ def to_jax_params(state_dict: dict) -> dict:
     for k, v in state_dict.items():
         key, perm = _jax_key(k, state_dict)
         a = v.detach().float().cpu()
-        _assign(tree, key, (_permute(a, to_torch=False) if perm else a
-                            ).numpy())
+        assign_dotted(tree, key, (permute_layout(a, to_torch=False)
+                                  if perm else a).numpy())
     return tree
 
 
@@ -130,7 +133,7 @@ def _qstate_layout(qstate: dict, to_torch: bool) -> dict:
         for slot, st in slots.items():
             conv = slot in _WEIGHT_SLOTS
             out[site][slot] = {
-                leaf: _permute(as_tensor(a), to_torch) if conv
+                leaf: permute_layout(as_tensor(a), to_torch) if conv
                 else as_tensor(a) for leaf, a in st.items()}
     return out
 

@@ -15,24 +15,33 @@ qdiffusion_tpu/deploy.py).
                nibbles per byte at 4 bits or fewer) and dequantize inside
                the streaming kernels B5 / B6 (deploy.py:381-405).
 
-`export_quantized_checkpoint` / `load_quantized_checkpoint` are not
-ported: no command of the port's CLI reads or writes them.
+`export_quantized_checkpoint` / `load_quantized_checkpoint` write and
+read the JAX package's quantized-checkpoint npz (deploy.py:222-356):
+integer weights plus scales, in the JAX names and layout, so either
+package reads the other's file.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Callable, Optional
+import json
+from pathlib import Path
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
+from qdiffusion_torch.convert import assign_dotted, from_jax_params, \
+    permute_layout, to_jax_params
 from qdiffusion_torch.ops.int4_matmul import pack_int4_weight
 from qdiffusion_torch.ops.int8 import pack_layer, to2d, weight_int_values
 from qdiffusion_torch.ops.qlayers import IN_AXIS, split_weight
 from qdiffusion_torch.quant.context import ENGINES, QuantCtx, QuantMode
+from qdiffusion_torch.utils.checkpoints import flatten_sorted
 
 __all__ = ["fold_weights", "pack_model", "stream_pack_model",
-           "make_quantized_step", "weight_int_values"]
+           "make_quantized_step", "weight_int_values",
+           "export_quantized_checkpoint", "load_quantized_checkpoint"]
 
 
 @torch.no_grad()
@@ -150,6 +159,112 @@ def stream_pack_model(model, qstate: dict, dense_only: bool = True) -> dict:
             entry["in_chs"] = tuple(int(h.shape[1]) for h in halves)
         packed[name] = entry
     return packed
+
+
+def _jax_layout(a: torch.Tensor) -> np.ndarray:
+    """A torch-layout weight-shaped tensor in the JAX layout (HWIO, LIO,
+    (in, out)), as numpy."""
+    return permute_layout(a.detach().cpu(), to_torch=False).numpy()
+
+
+@torch.no_grad()
+def export_quantized_checkpoint(model, qstate: dict, path) -> dict:
+    """Write `model` as integer weights plus scales (JAX deploy.py:222-299,
+    the same file). Every weight with a 'w' state is stored as its grid
+    values (AdaRound's hard rounding where the state has alpha), shifted
+    by n_levels + 1 when symmetric, nibble-packed (`/int4`, two per byte,
+    low nibble first) at 4 bits or fewer, else `/int8`, beside its
+    `/delta` and `/zero_point` (f32, JAX layout); a split layer stores its
+    two halves as `.w` and `.w0`. Every other leaf, the quantized layers'
+    biases included, is `/fp16`. Keys are the JAX param paths. Returns the
+    manifest {layer: {"bits", "shape", "split"[, "axis"], "sym"}}, also
+    stored as JSON under `__manifest__`."""
+    sd = model.state_dict()
+    flat, manifest, done = {}, {}, set()
+
+    def put(key, w, st, spec):
+        wq = _jax_layout(weight_int_values(w, st, spec))
+        shift = spec.n_levels + 1 if spec.symmetric else 0
+        ints = (wq + shift).astype(np.uint8)
+        if spec.n_bits <= 4:
+            v = np.concatenate([ints.reshape(-1),
+                                np.zeros(ints.size % 2, np.uint8)])
+            flat[f"{key}/int4"] = (v[0::2] | (v[1::2] << 4)).astype(np.uint8)
+        else:
+            flat[f"{key}/int8"] = ints
+        flat[f"{key}/delta"] = _jax_layout(st["delta"]).astype(np.float32)
+        flat[f"{key}/zero_point"] = _jax_layout(
+            st["zero_point"]).astype(np.float32)
+        return list(ints.shape)
+
+    for name, cfg in model.layer_cfgs.items():
+        lstate = qstate.get(name)
+        if not lstate or "w" not in lstate:
+            continue
+        w = sd[f"{name}.weight"]
+        info = {"bits": cfg.wq.n_bits}
+        if cfg.split:
+            wa, wb = split_weight(w, cfg.split)
+            # the JAX layout keeps input channels on axis ndim - 2
+            info.update(shape=[put(f"{name}.w", wa, lstate["w"], cfg.wq),
+                               put(f"{name}.w0", wb, lstate["w0"], cfg.wq)],
+                        split=cfg.split, axis=w.ndim - 2)
+        else:
+            info.update(shape=put(f"{name}.w", w, lstate["w"], cfg.wq),
+                        split=0)
+        manifest[name] = {**info, "sym": cfg.wq.symmetric}
+        done.add(f"{name}.weight")
+        if sd.get(f"{name}.bias") is not None:
+            flat[f"{name}.b/fp16"] = sd[f"{name}.bias"].float().cpu() \
+                .numpy().astype(np.float16)
+            done.add(f"{name}.bias")
+    rest = to_jax_params({k: v for k, v in sd.items() if k not in done})
+    for keys, a in flatten_sorted(rest):
+        flat[".".join(keys) + "/fp16"] = a.astype(np.float16)
+    p = Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(p, __manifest__=np.frombuffer(
+        json.dumps(manifest).encode(), np.uint8), **flat)
+    return manifest
+
+
+def load_quantized_checkpoint(path) -> Tuple[dict, dict]:
+    """Read an `export_quantized_checkpoint` file (this package's or the
+    JAX package's) into (state_dict, manifest): CPU f32 tensors in the
+    torch layout, the quantized weights dequantized as (ints - zero_point)
+    * delta in f32, which is `fold_weights`' value bit for bit; the fp16
+    leaves widened to f32 (JAX deploy.py:302-356)."""
+    with np.load(Path(path), allow_pickle=False) as data:
+        manifest = json.loads(bytes(data["__manifest__"]).decode())
+
+        def dequant(key, bits, shape, sym):
+            if bits <= 4:
+                packed = data[f"{key}/int4"]
+                ints = np.stack([packed & 0xF, packed >> 4], axis=1)
+                ints = ints.reshape(-1)[: int(np.prod(shape))].reshape(shape)
+            else:
+                ints = data[f"{key}/int8"]
+            ints = ints.astype(np.float32)
+            if sym:  # the shift by n_levels + 1
+                ints = ints - 2 ** (bits - 1)
+            return (ints - data[f"{key}/zero_point"]) * data[f"{key}/delta"]
+
+        tree: dict = {}
+        for name, info in manifest.items():
+            sym = info.get("sym", False)
+            if info["split"]:
+                w = np.concatenate(
+                    [dequant(f"{name}.{slot}", info["bits"], shape, sym)
+                     for slot, shape in zip(("w", "w0"), info["shape"])],
+                    axis=info["axis"])
+            else:
+                w = dequant(f"{name}.w", info["bits"], info["shape"], sym)
+            assign_dotted(tree, f"{name}.w", w)
+        for key in data.files:
+            if key.endswith("/fp16"):
+                assign_dotted(tree, key[: -len("/fp16")],
+                        data[key].astype(np.float32))
+    return from_jax_params(tree), manifest
 
 
 def make_quantized_step(model, qstate: dict, engine: str = "fold",

@@ -93,12 +93,12 @@ def load_nested(path) -> dict:
     return tree
 
 
-def _flatten_sorted(tree: dict, prefix=()):
+def flatten_sorted(tree: dict, prefix=()):
     """(path, leaf) pairs in jax.tree_util's dict order (sorted keys)."""
     for k in sorted(tree):
         v = tree[k]
         if isinstance(v, dict):
-            yield from _flatten_sorted(v, prefix + (k,))
+            yield from flatten_sorted(v, prefix + (k,))
         else:
             yield prefix + (k,), v
 
@@ -109,7 +109,7 @@ def load_pytree(path, like: dict) -> dict:
     dict of arrays in the JAX layout; every leaf's shape must match."""
     out: dict = {}
     with np.load(Path(path), allow_pickle=False) as data:
-        leaves = list(_flatten_sorted(like))
+        leaves = list(flatten_sorted(like))
         n_file = sum(1 for k in data.files if k.isdigit())
         if n_file != len(leaves):
             raise ValueError(f"{path}: {n_file} leaves, the model has "
@@ -133,7 +133,7 @@ def save_pytree(path, tree: dict) -> None:
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     np.savez(path, **{str(i): np.asarray(leaf) for i, (_, leaf)
-                      in enumerate(_flatten_sorted(tree))})
+                      in enumerate(flatten_sorted(tree))})
 
 
 class CalibCheckpointer:

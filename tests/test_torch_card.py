@@ -1272,3 +1272,97 @@ def test_tiny_sd_fold_dpm_solver_on_card(card):
     got = out[str(card)]
     assert bool(torch.isfinite(got).all())
     assert float(_rel_l2(got, out["cpu"])) <= 1e-3
+
+
+def test_quality_protocol_smoke_size_on_card(card, monkeypatch):
+    """The quality-evidence harness at its CPU test's smoke size on the
+    card: JAX's output keys with finite values; kernel B1 launched 0 times
+    in training and inside every reconstruction, and in every sampling
+    arm; a second run of the same seed gives the same result exactly
+    (cuDNN's deterministic algorithms)."""
+    import contextlib
+    import math
+
+    from qdiffusion_torch.calib import engine
+    from qdiffusion_torch.scripts import quality_evidence as qe
+
+    fused_group_norm.launches = 0
+    parts, recon = {}, []
+
+    @contextlib.contextmanager
+    def part(name):
+        b0 = fused_group_norm.launches
+        yield
+        parts[name] = fused_group_norm.launches - b0
+
+    real = engine.reconstruct_unit
+
+    def recon_spy(*a, **kw):
+        b0 = fused_group_norm.launches
+        res = real(*a, **kw)
+        recon.append(fused_group_norm.launches - b0)
+        return res
+
+    monkeypatch.setattr(engine, "reconstruct_unit", recon_spy)
+    out = qe.run_protocol(train_steps=4, n_samples=8, recon_iters=2, bits=4,
+                          sample_steps=4, cali_n=8, cali_st=4, seed=0,
+                          act_quant=True, log=lambda *a: None,
+                          device=card, part=part)
+    assert all(math.isfinite(v) for v in out.values()
+               if isinstance(v, float))
+    assert "fid_calib_a8" in out and "recovered_frac" in out
+    assert parts["train"] == 0
+    assert len(recon) == 2 * 18 and set(recon) == {0}
+    for name in ("sample_fp", "sample_naive", "sample_calib",
+                 "sample_naive_a8", "sample_calib_a8"):
+        assert parts[name] == 4 * 21, name  # DDIM-4, 21 GroupNorms a call
+    again = qe.run_protocol(train_steps=4, n_samples=8, recon_iters=2,
+                            bits=4, sample_steps=4, cali_n=8, cali_st=4,
+                            seed=0, act_quant=True, log=lambda *a: None,
+                            device=card)
+    assert again == out
+    assert not torch.backends.cudnn.deterministic  # restored
+
+
+def test_tiny_export_round_trip_on_card(card, tmp_path):
+    """export_quantized_checkpoint of a tiny split W4 UNet on the card,
+    load_quantized_checkpoint of the file: the reloaded quantized weights
+    equal fold_weights' bit for bit, a forward of the reloaded model is
+    within 2e-3 of the fold engine's (B1 launched in both), and the file
+    is under a quarter of the f32 params' bytes."""
+    from qdiffusion_torch import resolve_device
+    from qdiffusion_torch.calib.engine import init_weight_qstate
+    from qdiffusion_torch.config import QuantFlags
+    from qdiffusion_torch.deploy import export_quantized_checkpoint, \
+        fold_weights, load_quantized_checkpoint, make_quantized_step
+    from qdiffusion_torch.models.unet_ddim import DDIMUNet, DDIMUNetConfig
+
+    resolve_device(card)
+    cfg = DDIMUNetConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                         attn_resolutions=(8,), resolution=16,
+                         split_shortcut=True)
+    policy = QuantFlags(weight_bit=4).policy_ddim()
+    m = DDIMUNet(cfg, policy, device=card)
+    m.load_state_dict({k: v + 0.01 * (k.endswith("bias"))
+                       for k, v in m.init_params(0).items()})
+    q = init_weight_qstate(m)
+    man = export_quantized_checkpoint(m, q, tmp_path / "w4.npz")
+    sd, _ = load_quantized_checkpoint(tmp_path / "w4.npz")
+    sd = {k: v.to(card) for k, v in sd.items()}
+    folded = fold_weights(m, q)
+    assert all(torch.equal(sd[f"{n}.weight"], folded[f"{n}.weight"])
+               for n in man)
+    x = torch.randn((2, 16, 16, 3), generator=torch.Generator(
+        device=card).manual_seed(0), device=card)
+    t = torch.tensor([10.0, 900.0], device=card)
+    fused_group_norm.launches = 0
+    want = make_quantized_step(m, q, "fold")(x, t)
+    n_fold = fused_group_norm.launches
+    r = DDIMUNet(cfg, policy, device=card)
+    r.load_state_dict(sd)
+    with torch.no_grad():
+        got = r(x, t)
+    assert n_fold > 0 and fused_group_norm.launches == 2 * n_fold
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    f32 = 4 * sum(v.numel() for v in m.state_dict().values())
+    assert (tmp_path / "w4.npz").stat().st_size < f32 / 4
